@@ -2,10 +2,14 @@
 """Smoke run of the PyTorch/CUDA port of ThundeRiNG on one GPU.
 
 Builds the CUDA kernels of ``src/repro_torch/csrc`` with nvcc, holds each
-kernel against its plain PyTorch version for every sampler stage, drives
-the port's main path (engine -> stream -> BlockService) at the README's
-bulk size, S = 2**14 streams by T = 4096 steps, checks what comes out,
-and times the kernels with CUDA events.
+kernel against its plain PyTorch version (every sampler stage of the block
+generators; pi and option partials; fused dropout in float32 and
+bfloat16), drives the port's two main paths at full width - the generator
+(engine -> stream -> BlockService) at the README's bulk size, S = 2**14
+streams by T = 4096 steps, and the paper's applications (ops.estimate_pi,
+ops.price_option, their leased forms, ops.fused_dropout) at 2**28 draws and
+a (32768, 3072) activation - checks what comes out, and times the kernels
+with CUDA events beside their bounds and torch's own generators.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -50,6 +54,41 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # The 64-bit multiplies run as IMAD on the FMA pipe and are not counted,
 # so the operation bound below is a lower bound.
 INT_OPS_PER_ELEMENT = {"splitmix64": 34, "fmix32": 26, "faithful": 22}
+
+# The applications' kernels, counted from ``cuobjdump -sass`` of their
+# sm_90a build (nvcc 12.8) with tools/sass_loop_counts.py over the hot
+# path of each loop (slow paths that these inputs never take left out):
+# (INT32-pipe instructions, all instructions) per (x, y) row for pi and the
+# option, per element for dropout.
+#   pi: the row loop, unrolled twice, 0960-1430: 100 INT32 of 174    /2
+#   option: the row loop 0710-1730 less cosf's Payne-Hanek reduction
+#     (0e60-1270, |2 pi u| < 105615 never takes it) and sqrtf's slow call
+#     (13f0-1420): 70 INT32 of 189
+#   dropout bf16: one 16-byte run of 8 elements, 05f0-0700, 0710-1d70,
+#     3700-37f0: 233 INT32 of 393                                      /8
+#   dropout f32: one run of 4, 05e0-06f0, 0700-1160, 2980-2a70: 121 INT32
+#     of 201                                                           /4
+# A warp scheduler issues one instruction per clock: 132 SMs x 4 x 32 lanes
+# x 1.98 GHz.  The operation bound is the larger of the INT32 pipe's time
+# and the issue time.
+APP_OPS_PER_ELEMENT = {"pi": (50.0, 87.0), "option": (70.0, 189.0),
+                       "dropout_bf16": (233 / 8, 393 / 8),
+                       "dropout_f32": (121 / 4, 201 / 4)}
+DISPATCH_OPS_PER_S = 132 * 4 * 32 * 1.98e9
+
+# The applications' main path (paper Sec. 6): the README's estimate_pi
+# call, 2**14 lanes x 2**14 draws = 2**28 (x, y) pairs.
+APP_LANES = 2 ** 14
+APP_DRAWS = 2 ** 14
+OPTION = dict(s0=100.0, strike=100.0, r=0.05, sigma=0.2, t=1.0)
+# Option partials against the plain version, relative to the largest
+# partial: the kernel sums each tile in row order and the plain version in
+# torch's order, and the libm of each may differ by a few ULP per draw.
+OPTION_RTOL = 1e-5
+# gemma-7b's d_model (src/repro/configs/gemma_7b.py) x 8 sequences of 4096
+# tokens: 100.7M activations.
+DROPOUT_SHAPE = (8 * 4096, 3072)
+DROPOUT_RATE = 0.1
 
 EXACT_STAGES = ("bits", "uniform", "bernoulli", "poisson", "categorical")
 STAGES = [
@@ -521,6 +560,371 @@ def phase_timing(device) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the applications: kernels C (fused dropout), D (pi), E (option)
+# ---------------------------------------------------------------------------
+
+def _mc_plans(T: int, S: int, off: int, purposes, device):
+    from repro_torch.core import engine
+    return tuple(engine.make_plan(seed=SEED, num_streams=S, num_steps=T,
+                                  purpose=p, offset=off, device=device)
+                 for p in purposes)
+
+
+def _option_gap(got, want) -> float:
+    """Largest |got - want| over the largest |want| of a partial array."""
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16, torch.int32: torch.int32}[a.dtype]
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        torch.equal(a.view(view), b.view(view))
+
+
+def phase_apps_parity(device) -> dict:
+    """Kernels C, D and E against their plain versions on the card."""
+    import torch
+    from repro_torch.core import stream
+    from repro_torch.kernels import fused_dropout as fd, mc
+    worst = {"pi_partials": 0.0, "option_partials": 0.0,
+             "fused_dropout_2d": 0.0}
+    worst_gap = 0.0
+    n = 0
+    for T, S, bt in ((37, 130, 8), (256, 130, 256), (4096, S_FULL, 256)):
+        for off in (0, HIGH_OFFSET):
+            tag = f"T={T} S={S} block_t={bt} off={off}"
+            px, py = _mc_plans(T, S, off, (1, 2), device)
+            args = (px.x0, px.ctr, T, px.h, py.h)
+            got = mc.pi_partials(*args, block_t=bt)
+            want = mc.pi_partials_plain(*args, block_t=bt)
+            sync(device)
+            require(_bits_equal(got, want), f"pi partials disagree: {tag}")
+            ox, oy = _mc_plans(T, S, off, (3, 4), device)
+            args = (ox.x0, ox.ctr, T, ox.h, oy.h)
+            got = mc.option_partials(*args, block_t=bt, **OPTION)
+            want = mc.option_partials_plain(*args, block_t=bt, **OPTION)
+            sync(device)
+            gap = _option_gap(got, want)
+            require(bool(torch.isfinite(got).all()) and gap <= OPTION_RTOL,
+                    f"option partials disagree: {tag}: {gap:.3e} of the "
+                    f"largest partial")
+            worst["option_partials"] = max(worst["option_partials"],
+                                           float((got - want).abs().max()))
+            worst_gap = max(worst_gap, gap)
+            n += 2
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    fam = stream.new_stream(SEED, 0, device=device)
+    for shape in ((3, 1001), (8, 128), (4096, 3072)):
+        base = torch.randn(shape, generator=gen, device=device)
+        dtypes = [torch.float32, torch.bfloat16]
+        if shape[0] <= 8:
+            dtypes.append(torch.float16)
+        for dtype in dtypes:
+            x = base.to(dtype)
+            for off in (0, HIGH_OFFSET):
+                s = stream.advance(fam, off)
+                for rate in (0.1, 0.5, 1e-9):
+                    got = fd.fused_dropout_2d(x, s.h, s.x0, s.ctr, rate)
+                    want = fd.fused_dropout_2d_plain(x, s.h, s.x0, s.ctr,
+                                                     rate)
+                    sync(device)
+                    require(_bits_equal(got, want),
+                            f"fused dropout disagrees: {tuple(shape)} "
+                            f"{dtype} off={off} rate={rate}")
+                    n += 1
+    flat = torch.randn(64 * 1001 + 1, generator=gen, device=device)
+    x = flat[1:].view(64, 1001)       # 4 bytes past a 16-byte line
+    s = stream.advance(fam, HIGH_OFFSET)
+    require(_bits_equal(fd.fused_dropout_2d(x, s.h, s.x0, s.ctr, 0.3),
+                        fd.fused_dropout_2d_plain(x, s.h, s.x0, s.ctr, 0.3)),
+            "fused dropout disagrees on a misaligned x")
+    n += 1
+    log(f"apps parity: {n} kernel-vs-plain checks passed (pi and dropout "
+        f"bit-equal; option partials within {worst_gap:.3e} of the largest "
+        f"partial, limit {OPTION_RTOL})")
+    return worst
+
+
+def _black_scholes(s0, strike, r, sigma, t):
+    """(closed-form call price, standard deviation of one discounted
+    payoff) under GBM."""
+    import math
+
+    def norm_cdf(v):
+        return 0.5 * (1.0 + math.erf(v / math.sqrt(2.0)))
+    vt = sigma * math.sqrt(t)
+    d1 = (math.log(s0 / strike) + (r + 0.5 * sigma * sigma) * t) / vt
+    d2 = d1 - vt
+    price = s0 * norm_cdf(d1) - strike * math.exp(-r * t) * norm_cdf(d2)
+    second = math.exp(-2 * r * t) * (
+        s0 * s0 * math.exp((2 * r + sigma * sigma) * t) * norm_cdf(d1 + vt)
+        - 2 * strike * s0 * math.exp(r * t) * norm_cdf(d1)
+        + strike * strike * norm_cdf(d2))
+    return price, math.sqrt(second - price * price)
+
+
+def phase_apps(device) -> dict:
+    """The applications' main path at full width, through the user entry
+    points: ops.estimate_pi, ops.price_option, the leased
+    runtime.blocks.estimate_pi, ops.fused_dropout on a stream and on a
+    lease."""
+    import math
+    import torch
+    from repro_torch.core import engine, stream
+    from repro_torch.kernels import fused_dropout as fd, mc, ops, ref
+    from repro_torch.kernels import thundering_block as tb
+    from repro_torch.runtime import blocks
+    from repro_torch.runtime.blocks import BlockService
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    xs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(DROPOUT_SHAPE, generator=gen, device=device,
+                        dtype=dtype)
+        xs[dtype] = x.masked_fill_(x == 0, 1.0)   # 0 out = dropped
+    x_lease = xs[torch.float32][:8]
+    drop = stream.derive(stream.new_stream(SEED, 0, device=device), 0xD0)
+    n_drop = xs[torch.float32].numel()
+    sync(device)
+
+    tb.reset_counts()
+    mc.reset_counts()
+    fd.reset_counts()
+    t0 = time.perf_counter()
+    kw = dict(seed=SEED, num_lanes=APP_LANES, draws_per_lane=APP_DRAWS)
+    pi = ops.estimate_pi(**kw)
+    price = ops.price_option(**kw)
+    svc = BlockService(seed=SEED, device=device)
+    lease_kw = dict(num_lanes=APP_LANES, draws_per_lane=APP_DRAWS)
+    e1 = blocks.estimate_pi(svc, **lease_kw)
+    e2 = blocks.estimate_pi(svc, **lease_kw)
+    y = {torch.bfloat16: ops.fused_dropout(xs[torch.bfloat16], drop,
+                                           DROPOUT_RATE),
+         torch.float32: ops.fused_dropout(xs[torch.float32],
+                                          stream.advance(drop, n_drop),
+                                          DROPOUT_RATE)}
+    svc.open("smoke/dropout")
+    lease = svc.lease("smoke/dropout", fd.mask_elems(x_lease.shape))
+    y_lease = ops.fused_dropout(x_lease, lease, DROPOUT_RATE)
+    lease.commit()
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = {"pi_partials": mc.pi_partials.launches,
+                "option_partials": mc.option_partials.launches,
+                "fused_dropout_2d": fd.fused_dropout_2d.launches}
+    plain_runs = (mc.pi_partials_plain.cuda_runs
+                  + mc.option_partials_plain.cuda_runs
+                  + fd.fused_dropout_2d_plain.cuda_runs
+                  + tb.thundering_ctr_plain.cuda_runs
+                  + tb.thundering_faithful_plain.cuda_runs)
+    log(f"apps path: {wall:.2f} s wall; launches {launches}; plain versions "
+        f"run on the card: {plain_runs}")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the apps path never launched: {launches}")
+    require(plain_runs == 0, "a plain version ran on a CUDA tensor")
+
+    # pi: within 5 sigma of the binomial estimate; three tiles of the
+    # partials against the plain oracle on shifted windows
+    N = APP_LANES * APP_DRAWS
+    p = math.pi / 4
+    sigma_pi = 4 * math.sqrt(p * (1 - p) / N)
+    require(pi.dtype == torch.float32 and pi.dim() == 0, "pi result type")
+    log(f"estimate_pi: {pi.item()!r} (|err| {abs(pi.item() - math.pi):.3e}, "
+        f"5 sigma {5 * sigma_pi:.3e}); leased: {e1.item()!r}, {e2.item()!r}")
+    require(abs(pi.item() - math.pi) < 5 * sigma_pi, "pi off by > 5 sigma")
+    require(e1.item() != e2.item() and
+            abs(e1.item() - math.pi) < 5 * sigma_pi and
+            abs(e2.item() - math.pi) < 5 * sigma_pi, "leased pi estimates")
+    require(svc.ledger_state()["channels"]["mc/pi"]["committed"] ==
+            [[0, 2 * APP_DRAWS]], "leased windows not committed")
+    px, py = _mc_plans(APP_DRAWS, APP_LANES, 0, (1, 2), device)
+    partials = mc.pi_partials_from_plans(px, py)
+    hits = partials.to(torch.float32).sum()
+    require((4.0 * hits / torch.full((), N, dtype=torch.float32,
+                                     device=device)).item() == pi.item(),
+            "estimate_pi != its partials")
+    bt, n_tiles = mc.tile_layout(APP_DRAWS, mc.DEFAULT_BLOCK_T)
+    for i in (0, n_tiles // 2, n_tiles - 1):
+        want = ref.mc_pi_partial(px.x0, px.h, py.h, bt, px.ctr + i * bt)
+        require(torch.equal(partials[i], want), f"pi tile {i} != oracle")
+    bs, sd = _black_scholes(**OPTION)
+    sigma_opt = sd / math.sqrt(N)
+    log(f"price_option: {price.item()!r} (Black-Scholes {bs!r}, |err| "
+        f"{abs(price.item() - bs):.3e}, 5 sigma {5 * sigma_opt:.3e})")
+    require(abs(price.item() - bs) < 5 * sigma_opt,
+            "option price off by > 5 sigma")
+    ox, oy = _mc_plans(APP_DRAWS, APP_LANES, 0, (3, 4), device)
+    opart = mc.option_partials_from_plans(ox, oy, **OPTION)
+    want = ref.mc_option_partial(ox.x0, ox.h, oy.h, bt, ox.ctr, OPTION["s0"],
+                                 OPTION["strike"], OPTION["r"],
+                                 OPTION["sigma"], OPTION["t"])
+    require(_option_gap(opart[0], want) <= OPTION_RTOL,
+            "option tile 0 != oracle")
+
+    # dropout: keep fraction, kept values, a mask window against the oracle
+    thresh = fd.keep_threshold(DROPOUT_RATE)
+    for dtype, out in y.items():
+        x = xs[dtype]
+        keep = out != 0
+        frac = keep.sum().item() / n_drop
+        sd_keep = math.sqrt((1 - DROPOUT_RATE) * DROPOUT_RATE / n_drop)
+        log(f"fused_dropout {dtype}: keep fraction {frac!r} (5 sigma "
+            f"{5 * sd_keep:.2e})")
+        require(abs(frac - (1 - DROPOUT_RATE)) < 5 * sd_keep,
+                f"dropout keep fraction {frac}")
+        scale = torch.tensor(1.0 / (1.0 - DROPOUT_RATE), dtype=dtype,
+                             device=device)
+        require(_bits_equal(out, torch.where(keep, x * scale,
+                                             torch.zeros_like(x))),
+                f"dropout kept values != x * scale ({dtype})")
+        s = drop if dtype == torch.bfloat16 else stream.advance(drop, n_drop)
+        p0 = n_drop // 2 + 12345
+        bits = engine.generate(engine.plan_for_stream(
+            stream.advance(s, p0), 4096), backend="torch")[:, 0]
+        require(torch.equal(keep.reshape(-1)[p0:p0 + 4096],
+                            bits.to(torch.int64) < thresh),
+                f"dropout mask window != stream bits < threshold ({dtype})")
+    st = lease.stream()
+    require(_bits_equal(y_lease, ref.fused_dropout(x_lease, st.h, st.x0,
+                                                   st.ctr, DROPOUT_RATE)),
+            "leased dropout != oracle")
+    log("apps outputs: pi, option price, leases, dropout masks check out")
+    return launches
+
+
+def phase_apps_timing(device) -> list:
+    """Kernels C, D, E at the apps path's shapes: ms, bound, plain ms,
+    torch's generators, the torch "vendor" pipelines and draws per s."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fused_dropout as fd, mc, ops, ref
+    T, S = APP_DRAWS, APP_LANES
+    N = T * S
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    rows = []
+
+    def bound(n_bytes, n_elems, key):
+        int_ops, all_ops = APP_OPS_PER_ELEMENT[key]
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = max(n_elems * int_ops / INT32_OPS_PER_S,
+                    n_elems * all_ops / DISPATCH_OPS_PER_S) * 1e3
+        return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
+                                     else "bytes")
+
+    log(f"apps timing at T={T} draws x S={S} lanes = {N} (x, y) pairs, "
+        f"dropout at {DROPOUT_SHAPE} (CUDA events):")
+    bt, n_tiles = mc.tile_layout(T, mc.DEFAULT_BLOCK_T)
+    out_bytes, in_bytes = n_tiles * S * 4, 4 * S * 4
+    for name, purposes, app in (("pi_partials", (1, 2), "pi"),
+                                ("option_partials", (3, 4), "option")):
+        px, py = _mc_plans(T, S, 0, purposes, device)
+        args = (px.x0, px.ctr, T, px.h, py.h)
+        kw = {} if app == "pi" else OPTION
+        kernel = getattr(mc, name)
+        plain = getattr(mc, name + "_plain")
+        out = torch.empty((n_tiles, S), device=device,
+                          dtype=torch.int32 if app == "pi" else torch.float32)
+        ms = time_cuda(lambda: kernel(*args, out=out, **kw), reps=10)
+        plain_ms = time_cuda(lambda: plain(*args, **kw), reps=1, warmup=1)
+        b_ms, b_by = bound(out_bytes + in_bytes, N, app)
+        entry = getattr(ops, "estimate_pi" if app == "pi" else "price_option")
+        e_ms = time_cuda(lambda: entry(seed=SEED, num_lanes=S,
+                                       draws_per_lane=T), reps=5)
+        if app == "pi":
+            u = torch.empty((2, N), device=device)
+            lib_ms = time_cuda(lambda: torch.rand((2, N), generator=gen,
+                                                  device=device, out=u),
+                               reps=10)
+
+            def vendor():
+                torch.rand((2, N), generator=gen, device=device, out=u)
+                return 4.0 * ((u[0] * u[0] + u[1] * u[1]) < 1.0).sum() / N
+            lib_label = f"torch.rand of {2 * N} f32"
+        else:
+            z = torch.empty(N, device=device)
+            lib_ms = time_cuda(lambda: torch.randn(N, generator=gen,
+                                                   device=device, out=z),
+                               reps=10)
+            s0, k, drift, vol, disc = ref.option_constants(
+                OPTION["s0"], OPTION["strike"], OPTION["r"],
+                OPTION["sigma"], OPTION["t"])
+
+            def vendor():
+                torch.randn(N, generator=gen, device=device, out=z)
+                st = s0 * torch.exp(drift + vol * z)
+                return (torch.clamp_min(st - k, 0.0) * disc).sum() / N
+            lib_label = f"torch.randn of {N} f32"
+        v_ms = time_cuda(vendor, reps=5)
+        log(f"  {name} kernel: {ms:.4f} ms = {N / (ms * 1e-3) / 1e9:.1f} G "
+            f"(x, y) draws/s; bound {b_ms:.4f} ms by {b_by} "
+            f"({b_ms / ms * 100:.1f}% of the bound's speed)")
+        log(f"  {name} plain version at the same shape: {plain_ms:.2f} ms")
+        log(f"  ops.{entry.__name__} end to end: {e_ms:.4f} ms = "
+            f"{N / (e_ms * 1e-3) / 1e9:.1f} G draws/s")
+        log(f"  library {lib_label} (Philox): {lib_ms:.4f} ms; torch vendor "
+            f"pipeline (generate -> integrand -> sum): {v_ms:.4f} ms = "
+            f"{N / (v_ms * 1e-3) / 1e9:.1f} G draws/s "
+            f"({v_ms / e_ms:.2f}x the entry point's time)")
+        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms))
+
+    from repro_torch.core import stream
+    s = stream.new_stream(SEED, 0, device=device)
+    n = DROPOUT_SHAPE[0] * DROPOUT_SHAPE[1]
+    per_dtype = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(DROPOUT_SHAPE, generator=gen, device=device,
+                        dtype=dtype)
+        out = torch.empty_like(x)
+        ms = time_cuda(lambda: fd.fused_dropout_2d(
+            x, s.h, s.x0, s.ctr, DROPOUT_RATE, out=out), reps=20)
+        plain_ms = time_cuda(lambda: fd.fused_dropout_2d_plain(
+            x, s.h, s.x0, s.ctr, DROPOUT_RATE), reps=1, warmup=1)
+        lib_ms = time_cuda(lambda: F.dropout(x, DROPOUT_RATE, training=True),
+                           reps=20)
+        moved = 2 * n * x.element_size()
+        b_ms, b_by = bound(moved, n, "dropout_bf16"
+                           if dtype == torch.bfloat16 else "dropout_f32")
+        log(f"  fused_dropout_2d {dtype}: {ms:.4f} ms = "
+            f"{moved / (ms * 1e-3) / 1e9:.1f} GB/s; bound {b_ms:.4f} ms by "
+            f"{b_by} ({b_ms / ms * 100:.1f}% of the bound's speed); plain "
+            f"{plain_ms:.2f} ms; torch F.dropout {lib_ms:.4f} ms")
+        per_dtype[dtype] = dict(name="fused_dropout_2d", ms=ms,
+                                plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=lib_ms)
+        del x, out
+    rows.append(per_dtype[torch.bfloat16])   # the training dtype
+    return rows
+
+
+def run_phase(name: str, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    result = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return result
+
+
+KERNEL_SOURCES = {
+    "thundering_ctr": ("src/repro_torch/csrc/thundering_block.cu",
+                       "src/repro/kernels/thundering_block.py:52"),
+    "thundering_faithful": ("src/repro_torch/csrc/thundering_block.cu",
+                            "src/repro/kernels/thundering_block.py:65"),
+    "fused_dropout_2d": ("src/repro_torch/csrc/fused_dropout.cu",
+                         "src/repro/kernels/fused_dropout.py:52"),
+    "pi_partials": ("src/repro_torch/csrc/mc.cu",
+                    "src/repro/kernels/mc.py:51"),
+    "option_partials": ("src/repro_torch/csrc/mc.cu",
+                        "src/repro/kernels/mc.py:64"),
+}
+
+
 def main() -> int:
     try:
         import torch
@@ -542,25 +946,25 @@ def main() -> int:
         f"python {sys.version.split()[0]}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     try:
-        phase_build()
-        worst = phase_parity(device)
-        phase_golden(device)
-        launches = phase_main_path(device)
-        timing = phase_timing(device)
-        phase_delivery(device)
+        run_phase("build", phase_build)
+        worst = run_phase("parity", phase_parity, device)
+        worst.update(run_phase("apps parity", phase_apps_parity, device))
+        run_phase("golden", phase_golden, device)
+        launches = run_phase("main path", phase_main_path, device)
+        launches.update(run_phase("apps path", phase_apps, device))
+        timing = run_phase("timing", phase_timing, device)
+        timing += run_phase("apps timing", phase_apps_timing, device)
+        run_phase("delivery", phase_delivery, device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    sources = {"thundering_ctr": "src/repro/kernels/thundering_block.py:52",
-               "thundering_faithful":
-                   "src/repro/kernels/thundering_block.py:65"}
     kernels = []
     for row in timing:
         name = row["name"]
+        source, replaces = KERNEL_SOURCES[name]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/thundering_block.cu",
-            "replaces": sources[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -110,6 +110,15 @@ __device__ __forceinline__ u32 tb_deco_fmix32(u64 h, u64 counter) {
   return tb_fmix32(x);
 }
 
+// ThundeRiNG ctr-mode bits of one element: XSH_RR(root + h) ^ deco(h, counter),
+// root = x_{counter + 1} of the shared LCG; deco 0 = splitmix64, 1 = fmix32.
+// The one definition of the ctr pipeline: the block generator, the
+// Monte-Carlo kernels and fused dropout all draw through it.
+__device__ __forceinline__ u32 tb_ctr_bits(u64 root, u64 h, u64 counter, int deco) {
+  u32 perm = tb_xsh_rr(root + h);
+  return perm ^ (deco == 0 ? tb_deco_splitmix(h, counter) : tb_deco_fmix32(h, counter));
+}
+
 // One xorshift128 step; returns the new w.
 __device__ __forceinline__ u32 tb_xs_step(u32& x, u32& y, u32& z, u32& w) {
   u32 t = x ^ (x << 11);
@@ -118,6 +127,14 @@ __device__ __forceinline__ u32 tb_xs_step(u32& x, u32& y, u32& z, u32& w) {
   z = w;
   w = (w ^ (w >> 19)) ^ (t ^ (t >> 8));
   return w;
+}
+
+// Block of `threads` threads for a (rows, S) grid: x across stream columns
+// (the next power of two >= S, at most `threads`), y across rows.
+static inline dim3 tb_block_shape(int S, int threads = 256) {
+  int bx = 1;
+  while (bx < S && bx < threads) bx <<= 1;
+  return dim3(bx, threads / bx);
 }
 
 // ---- float stages ----------------------------------------------------------

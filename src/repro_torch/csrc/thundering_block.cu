@@ -44,11 +44,6 @@
 #define TB_THREADS 256
 #define TB_PAIRS_PER_THREAD 8
 
-__device__ __forceinline__ u32 tb_ctr_bits(u64 root, u64 h, u64 counter, int deco) {
-  u32 perm = tb_xsh_rr(root + h);
-  return perm ^ (deco == 0 ? tb_deco_splitmix(h, counter) : tb_deco_fmix32(h, counter));
-}
-
 // Kernel A.  blockDim = (bx, by), bx * by = TB_THREADS: x across stream
 // columns, y across row pairs.  Thread (tx, ty) of block (i, j) owns column
 // j*bx + tx and the row pairs p = i*by*ppt + ty + k*by, k < ppt; the root
@@ -110,12 +105,6 @@ thundering_faithful_kernel(void* __restrict__ out, long long rows, int S, u64 ba
     }
     tb_emit_pair(out, (size_t)r * (size_t)S + (size_t)col, (size_t)S, has1, b0, b1, st);
   }
-}
-
-static dim3 tb_block_shape(int S) {
-  int bx = 1;
-  while (bx < S && bx < TB_THREADS) bx <<= 1;
-  return dim3(bx, TB_THREADS / bx);
 }
 
 extern "C" {

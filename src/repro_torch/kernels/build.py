@@ -26,7 +26,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 #: library name -> its .cu source; headers in csrc/ enter every hash.
-LIBRARIES = {"thundering_block": "thundering_block.cu"}
+LIBRARIES = {"thundering_block": "thundering_block.cu", "mc": "mc.cu",
+             "fused_dropout": "fused_dropout.cu"}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -75,12 +75,12 @@ def _stage(spec, out_dtype: str, device: torch.device):
     return rec, keep
 
 
-def _u32_device(x: torch.Tensor) -> torch.Tensor:
+def u32_device(x: torch.Tensor) -> torch.Tensor:
     """u32 limb tensor -> contiguous int32 tensor of the same bits."""
     return x.to(torch.int32).contiguous()
 
 
-def _check_h(h: U64Pair) -> int:
+def check_h(h: U64Pair) -> int:
     if h[0].dim() != 1 or h[0].shape != h[1].shape:
         raise ValueError(f"h limbs must be two (S,) tensors, got "
                          f"{tuple(h[0].shape)} and {tuple(h[1].shape)}")
@@ -89,8 +89,8 @@ def _check_h(h: U64Pair) -> int:
     return int(h[0].shape[0])
 
 
-def _output(out: Optional[torch.Tensor], rows: int, S: int,
-            dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+def output_tensor(out: Optional[torch.Tensor], rows: int, S: int,
+                  dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     if out is None:
         return torch.empty((rows, S), dtype=dtype, device=device)
     if (out.dtype != dtype or out.device != device
@@ -102,11 +102,12 @@ def _output(out: Optional[torch.Tensor], rows: int, S: int,
     return out
 
 
-def _finish_plain(block: torch.Tensor, out: Optional[torch.Tensor]
-                  ) -> torch.Tensor:
+def finish_plain(block: torch.Tensor, out: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
     if out is None:
         return block
-    _output(out, block.shape[0], block.shape[1], block.dtype, block.device)
+    output_tensor(out, block.shape[0], block.shape[1], block.dtype,
+                  block.device)
     out.view(block.shape).copy_(block)
     return out
 
@@ -147,20 +148,20 @@ def thundering_ctr(x0: int, ctr: int, rows: int, h: U64Pair, *,
     ``out`` (any contiguous tensor of rows*S elements of the stage's
     dtype) is written in place and returned.
     """
-    S = _check_h(h)
+    S = check_h(h)
     if deco not in DECO_IDS:
         raise ValueError(f"unknown deco {deco!r}")
     _check_stage_rows(sampler, rows)
     device = h[0].device
     if device.type == "cpu":
-        return _finish_plain(thundering_ctr_plain(
+        return finish_plain(thundering_ctr_plain(
             x0, ctr, rows, h, deco=deco, sampler=sampler,
             out_dtype=out_dtype), out)
     if device.type != "cuda":
         raise ValueError(f"thundering_ctr runs on cpu or cuda, not {device}")
     dtype = sampler_mod.result_dtype(sampler, out_dtype)
-    out = _output(out, rows, S, dtype, device)
-    h_hi, h_lo = _u32_device(h[0]), _u32_device(h[1])
+    out = output_tensor(out, rows, S, dtype, device)
+    h_hi, h_lo = u32_device(h[0]), u32_device(h[1])
     rec, _ = _stage(sampler, out_dtype, device)
     lib = _lib()
     with torch.cuda.device(device):
@@ -222,7 +223,7 @@ def thundering_faithful(x0: int, ctr: int, rows: int, h: U64Pair,
     stream at the first row of each ``block_t``-row tile (``block_t`` even,
     ``n_tiles = ceil(rows / block_t)``).
     """
-    S = _check_h(h)
+    S = check_h(h)
     _check_stage_rows(sampler, rows)
     if block_t < 2 or block_t % 2:
         raise ValueError(f"block_t must be even and >= 2, got {block_t}")
@@ -234,7 +235,7 @@ def thundering_faithful(x0: int, ctr: int, rows: int, h: U64Pair,
     if states.device != device:
         raise ValueError("states and h lie on different devices")
     if device.type == "cpu":
-        return _finish_plain(thundering_faithful_plain(
+        return finish_plain(thundering_faithful_plain(
             x0, ctr, rows, h, states, block_t=block_t, sampler=sampler,
             out_dtype=out_dtype), out)
     if device.type != "cuda":
@@ -243,9 +244,9 @@ def thundering_faithful(x0: int, ctr: int, rows: int, h: U64Pair,
     if states.dtype not in (torch.int32, torch.uint32):
         raise ValueError(f"states must be 32-bit, got {states.dtype}")
     dtype = sampler_mod.result_dtype(sampler, out_dtype)
-    out = _output(out, rows, S, dtype, device)
+    out = output_tensor(out, rows, S, dtype, device)
     states = states.contiguous()
-    h_hi, h_lo = _u32_device(h[0]), _u32_device(h[1])
+    h_hi, h_lo = u32_device(h[0]), u32_device(h[1])
     rec, _ = _stage(sampler, out_dtype, device)
     lib = _lib()
     with torch.cuda.device(device):

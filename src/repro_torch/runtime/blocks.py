@@ -21,6 +21,9 @@ is the software form of that delivery layer, above the engine:
 
 In eager PyTorch there is nothing to compile per window: each window is
 one ``engine.generate`` (one kernel launch) at a static counter.
+
+``estimate_pi`` / ``price_option`` run the paper's two applications on
+leased draw windows: open, lease, run, commit (release on failure).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import torch
 
 from repro_torch.core import engine, sampler as sampler_mod, stream as tstream
 from repro_torch.core.u64 import M64, U64Pair
+from repro_torch.kernels import ops
 
 
 class LeaseError(ValueError):
@@ -688,3 +692,47 @@ class BlockProducer:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+# ---------------------------------------------------------------------------
+# Leased Monte-Carlo app entry points (paper Sec. 6 consumers)
+# ---------------------------------------------------------------------------
+
+def _leased_app(service: BlockService, channel: str, num_streams: int,
+                length: int, fn: Callable[[Lease], Any]) -> Any:
+    """open + lease + run + commit (release on failure): the lifecycle of
+    every synchronous leased consumer."""
+    service.open(channel, num_streams=num_streams)
+    lease = service.lease(channel, length)
+    try:
+        result = fn(lease)
+    except Exception:
+        service.release(lease)
+        raise
+    service.commit(lease)
+    return result
+
+
+def estimate_pi(service: BlockService, *, num_lanes: int,
+                draws_per_lane: int, **kw) -> torch.Tensor:
+    """MC pi over a leased draw window on the service's device: repeated
+    calls consume fresh, disjoint randomness of the service family (window
+    units = draws per lane; the x/y coordinate purposes share the
+    window)."""
+    return _leased_app(
+        service, "mc/pi", num_lanes, draws_per_lane,
+        lambda lease: ops.estimate_pi(
+            seed=service.seed, num_lanes=num_lanes,
+            draws_per_lane=draws_per_lane, offset=lease.lo,
+            device=service.device, **kw))
+
+
+def price_option(service: BlockService, *, num_lanes: int,
+                 draws_per_lane: int, **kw) -> torch.Tensor:
+    """Leased-window Black-Scholes MC (see ``estimate_pi``)."""
+    return _leased_app(
+        service, "mc/option", num_lanes, draws_per_lane,
+        lambda lease: ops.price_option(
+            seed=service.seed, num_lanes=num_lanes,
+            draws_per_lane=draws_per_lane, offset=lease.lo,
+            device=service.device, **kw))

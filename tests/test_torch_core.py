@@ -299,8 +299,9 @@ PORT_MODULES = [
     "repro_torch.core.sampler", "repro_torch.core.engine",
     "repro_torch.core.stream", "repro_torch.kernels",
     "repro_torch.kernels.ref", "repro_torch.kernels.build",
-    "repro_torch.kernels.thundering_block", "repro_torch.runtime",
-    "repro_torch.runtime.blocks"]
+    "repro_torch.kernels.thundering_block", "repro_torch.kernels.mc",
+    "repro_torch.kernels.fused_dropout", "repro_torch.kernels.ops",
+    "repro_torch.runtime", "repro_torch.runtime.blocks"]
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -313,6 +314,13 @@ def test_port_imports_neither_jax_nor_reference():
             "from repro_torch.runtime.blocks import BlockService\n"
             "svc = BlockService(seed=1, device='cpu')\n"
             "svc.open('c', num_streams=3); svc.take('c', 4)\n"
+            "from repro_torch.kernels import ops\n"
+            "from repro_torch.runtime import blocks\n"
+            "import torch\n"
+            "blocks.estimate_pi(svc, num_lanes=8, draws_per_lane=16)\n"
+            "blocks.price_option(svc, num_lanes=8, draws_per_lane=16)\n"
+            "svc.open('d')\n"
+            "ops.fused_dropout(torch.ones(4, 8), svc.lease('d', 32), 0.5)\n"
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"
             "print('isolated')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -341,3 +349,13 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         stream.new_stream(1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BlockService(seed=1)
+    from repro_torch.kernels import ops
+    for call in (lambda: ops.estimate_pi(seed=1, num_lanes=2,
+                                         draws_per_lane=4),
+                 lambda: ops.price_option(seed=1, num_lanes=2,
+                                          draws_per_lane=4),
+                 lambda: ops.thundering_bulk(seed=1, num_streams=2,
+                                             num_steps=4),
+                 lambda: ops.h_table(1, 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -10,7 +10,10 @@ import pytest
 import torch
 
 from repro_torch.core import engine, golden, sampler, stream, u64
+from repro_torch.kernels import fused_dropout as fd
+from repro_torch.kernels import mc, ops
 from repro_torch.kernels import thundering_block as tb
+from repro_torch.runtime import blocks
 from repro_torch.runtime.blocks import BlockService
 
 pytestmark = pytest.mark.gpu
@@ -19,6 +22,11 @@ STAGES = ["bits", "uniform", "normal", "bernoulli(0.3)", "exponential(1.5)",
           "poisson(3.5)", "gamma(2.5)", "gamma(3.0,0.5)", "gumbel",
           "categorical[0.5,0.25,0.125,0.125]"]
 EXACT = ("bits", "uniform", "bernoulli", "poisson", "categorical")
+OPTION = dict(s0=100.0, strike=100.0, r=0.05, sigma=0.2, t=1.0)
+# Option partials, relative to the largest partial: the kernel sums each
+# tile in row order and the plain version in torch's order, and CUDA's
+# logf / cosf / expf may differ from torch's by a few ULP per draw.
+OPTION_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -100,3 +108,73 @@ def test_out_of_place_checks_raise(cuda):
     with pytest.raises(ValueError, match="out must be"):
         engine.generate(plan, out=torch.empty((8, 8), dtype=torch.float32,
                                               device=cuda))
+
+
+@pytest.mark.parametrize("T,S,bt,off", [(37, 130, 8, 0),
+                                        (256, 130, 256, 2 ** 32 + 12345),
+                                        (1000, 1000, 64, 2 ** 32 - 300)])
+def test_mc_kernels_match_plain_versions(cuda, T, S, bt, off):
+    px, py = (engine.make_plan(seed=3, num_streams=S, num_steps=T, purpose=p,
+                               offset=off, device=cuda) for p in (1, 2))
+    args = (px.x0, px.ctr, T, px.h, py.h)
+    got = mc.pi_partials(*args, block_t=bt)
+    assert torch.equal(got, mc.pi_partials_plain(*args, block_t=bt))
+    got = mc.option_partials(*args, block_t=bt, **OPTION)
+    want = mc.option_partials_plain(*args, block_t=bt, **OPTION)
+    assert float((got - want).abs().max()) <= \
+        OPTION_RTOL * float(want.abs().max())
+
+
+@pytest.mark.parametrize("offset", [0, 2 ** 32 - 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", [(3, 1001), (8, 128), (257, 3072)])
+def test_fused_dropout_kernel_matches_plain_version(cuda, shape, dtype,
+                                                    offset):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    s = stream.advance(stream.new_stream(7, 0, device=cuda), offset)
+    view = torch.int32 if dtype == torch.float32 else torch.int16
+    for rate in (0.1, 0.5, 1e-9):
+        got = fd.fused_dropout_2d(x, s.h, s.x0, s.ctr, rate)
+        want = fd.fused_dropout_2d_plain(x, s.h, s.x0, s.ctr, rate)
+        assert torch.equal(got.view(view), want.view(view)), rate
+
+
+def test_fused_dropout_kernel_takes_misaligned_input(cuda):
+    base = torch.randn(64 * 65 + 1, device=cuda)
+    x = base[1:].view(64, 65)  # contiguous, 4 bytes past a 16-byte line
+    s = stream.new_stream(8, 0, device=cuda)
+    got = fd.fused_dropout_2d(x, s.h, s.x0, s.ctr, 0.3)
+    want = fd.fused_dropout_2d_plain(x, s.h, s.x0, s.ctr, 0.3)
+    assert torch.equal(got, want)
+
+
+def test_apps_run_on_the_kernels(cuda):
+    mc.reset_counts()
+    fd.reset_counts()
+    kw = dict(seed=1, num_lanes=300, draws_per_lane=200, block_t=64)
+    pi = ops.estimate_pi(**kw)
+    assert pi.device.type == "cuda" and pi.dtype == torch.float32
+    assert pi.item() == ops.estimate_pi(**kw, device="cpu").item()
+    price = ops.price_option(**kw)
+    want = ops.price_option(**kw, device="cpu").item()
+    assert abs(price.item() - want) <= OPTION_RTOL * want
+    svc = BlockService(seed=2, device=cuda)
+    e1 = blocks.estimate_pi(svc, num_lanes=128, draws_per_lane=64)
+    e2 = blocks.estimate_pi(svc, num_lanes=128, draws_per_lane=64)
+    assert e1.item() != e2.item()
+    assert svc.ledger_state()["channels"]["mc/pi"]["committed"] == [[0, 128]]
+    x = torch.randn((4, 8, 128), device=cuda, dtype=torch.bfloat16)
+    s = stream.new_stream(3, 0, device=cuda)
+    y = ops.fused_dropout(x, s, 0.1)
+    want = ops.fused_dropout(x.cpu(), stream.new_stream(3, 0, device="cpu"),
+                             0.1)
+    assert torch.equal(y.cpu().view(torch.int16), want.view(torch.int16))
+    assert torch.equal(ops.fused_dropout(x, s, 0.1, use_kernel=False), y)
+    assert mc.pi_partials.launches > 0 and mc.option_partials.launches > 0
+    assert fd.fused_dropout_2d.launches > 0
+    assert mc.pi_partials_plain.cuda_runs == 0
+    assert mc.option_partials_plain.cuda_runs == 0
+    assert fd.fused_dropout_2d_plain.cuda_runs == 0
