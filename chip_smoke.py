@@ -4,12 +4,15 @@
 Builds the CUDA kernels of ``src/repro_torch/csrc`` with nvcc, holds each
 kernel against its plain PyTorch version (every sampler stage of the block
 generators; pi and option partials; fused dropout in float32 and
-bfloat16), drives the port's two main paths at full width - the generator
-(engine -> stream -> BlockService) at the README's bulk size, S = 2**14
-streams by T = 4096 steps, and the paper's applications (ops.estimate_pi,
-ops.price_option, their leased forms, ops.fused_dropout) at 2**28 draws and
-a (32768, 3072) activation - checks what comes out, and times the kernels
-with CUDA events beside their bounds and torch's own generators.
+bfloat16; gumbel-max token sampling), drives the port's three main paths at
+full width - the generator (engine -> stream -> BlockService) at the
+README's bulk size, S = 2**14 streams by T = 4096 steps, the paper's
+applications (ops.estimate_pi, ops.price_option, their leased forms,
+ops.fused_dropout) at 2**28 draws and a (32768, 3072) activation, and the
+inference tier (the continuous batcher over the gumbel-max sampler at
+gemma-7b's vocabulary of 256000, with crash replay in a subprocess) -
+checks what comes out, and times the kernels with CUDA events beside their
+bounds and torch's own generators and samplers.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -42,18 +45,21 @@ ULP_BOUND = 8.0           # the reference's own slack for log / trig stages
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
-# INT32-pipe instructions (IADD3 / LOP3 / SHF / ISETP) per element of the
-# bits stage, counted from csrc/thundering_block.cu and sampler_stage.cuh:
-#   splitmix64: 64-bit root step and leaf add (4), XSH-RR (8), counter + 1
-#     (2), the three xor-shifts of mix64 (12), the add into the seed (2),
-#     the folds (2), address and store (4)                          = 34
-#   fmix32: root and leaf (4), XSH-RR (8), the counter words and adds (4),
-#     fmix32's three xor-shifts (6), fold (1), address and store (3) = 26
-#   faithful: root and leaf (4), XSH-RR (8), the xorshift128 step (6),
-#     fold (1), address and store (3)                                = 22
-# The 64-bit multiplies run as IMAD on the FMA pipe and are not counted,
-# so the operation bound below is a lower bound.
-INT_OPS_PER_ELEMENT = {"splitmix64": 34, "fmix32": 26, "faithful": 22}
+# The block generators' bits stage, counted from ``cuobjdump -sass`` of
+# their sm_90a build (nvcc 12.8) with tools/sass_loop_counts.py over the
+# path one row pair (two elements) takes through the row loop with the
+# bits stage (the stage switch's other cases left out): (INT32-pipe
+# instructions, all instructions) per element.
+#   ctr splitmix64: 0580-05f0, 06b0-0940, 0950-0970, 0a30-0dd0, 0e40-0eb0,
+#     11c00-11cf0: 66 INT32 of 136                                     /2
+#   ctr fmix32: 0580-06a0, 0830-0940, 0950-0a20, 0bd0-0dd0, 0e40-0eb0,
+#     11c00-11cf0: 53 INT32 of 108                                     /2
+#   faithful: 06f0-0b70, 0be0-0d40, 11e30-11ef0: 52 INT32 of 109       /2
+# The 64-bit multiplies run as IMAD on the FMA pipe; they count in the
+# issue total.
+BLOCK_OPS_PER_ELEMENT = {"splitmix64": (66 / 2, 136 / 2),
+                         "fmix32": (53 / 2, 108 / 2),
+                         "faithful": (52 / 2, 109 / 2)}
 
 # The applications' kernels, counted from ``cuobjdump -sass`` of their
 # sm_90a build (nvcc 12.8) with tools/sass_loop_counts.py over the hot
@@ -89,6 +95,23 @@ OPTION_RTOL = 1e-5
 # tokens: 100.7M activations.
 DROPOUT_SHAPE = (8 * 4096, 3072)
 DROPOUT_RATE = 0.1
+
+# The inference tier at full width: gemma-7b's vocabulary
+# (src/repro/configs/gemma_7b.py), the harness's default decode batch of 64
+# slots and the reference kernel's batch tile of 256.
+INF_VOCAB = 256000
+INF_BATCHES = (64, 256)
+INF_SHAPES = [(INF_VOCAB, 64), (INF_VOCAB, 256), (1000, 130), (300, 20),
+              (64, 8)]
+INF_OPTIONS = [(1.0, 0), (1.25, 0), (1.0, 16), (2.0, 4)]
+INF_SEQUENCES = 128
+INF_KILL_SEQUENCES = 32
+# Kernel F per vocabulary element, counted from ``cuobjdump -sass`` of its
+# sm_90a build (nvcc 12.8) with tools/sass_loop_counts.py over the
+# splitmix64 grid-stride loop, 0e90-15f0 (unmasked elements take all of
+# it): 34 INT32 of 119 instructions; 45 of them are FP32 (the two logf are
+# polynomials on the FMA pipe, no MUFU).  (INT32, all) per element.
+GA_OPS_PER_ELEMENT = (34.0, 119.0)
 
 EXACT_STAGES = ("bits", "uniform", "bernoulli", "poisson", "categorical")
 STAGES = [
@@ -494,8 +517,10 @@ def phase_timing(device) -> list:
             f"GSample/s  {gbps:.1f} GB/s")
 
     def bound(out_bytes, in_bytes, ops_key):
+        int_ops, all_ops = BLOCK_OPS_PER_ELEMENT[ops_key]
         t_bytes = (out_bytes + in_bytes) / HBM_BYTES_PER_S * 1e3
-        t_ops = elems * INT_OPS_PER_ELEMENT[ops_key] / INT32_OPS_PER_S * 1e3
+        t_ops = max(elems * int_ops / INT32_OPS_PER_S,
+                    elems * all_ops / DISPATCH_OPS_PER_S) * 1e3
         return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
                                      else "bytes")
 
@@ -903,6 +928,314 @@ def phase_apps_timing(device) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the inference tier: kernel F (gumbel-max sampling)
+# ---------------------------------------------------------------------------
+
+def _ga_case(V: int, B: int, device, seed: int = 9):
+    """(B, V) normal logits and (B,) leaf words of family (seed, 0xD0)."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.inference.kernels import gumbel_argmax as ga
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    logits = torch.randn((B, V), generator=gen, device=device)
+    x0, h_fam = engine.family_from_seed(seed, 0xD0)
+    h = ga.leaf_words([engine.derive_leaf_host(h_fam, t) for t in range(B)],
+                      device)
+    return logits, h, x0
+
+
+def _ga_check(tag: str, logits, h, x0, ctr, th, inv_temp, deco="splitmix64"):
+    """Kernel F against its plain version: tokens equal and the winning
+    scores equal bit for bit (the plain version's debug output)."""
+    import torch
+    from repro_torch.inference.kernels import gumbel_argmax as ga
+    B = logits.shape[0]
+    scores = torch.empty(B, device=logits.device)
+    got = ga.fused_argmax(logits, h, x0, ctr, th, inv_temp=inv_temp,
+                          deco=deco, scores_out=scores)
+    want, best = ga.fused_argmax_plain(logits, h, x0, ctr, th,
+                                       inv_temp=inv_temp, deco=deco,
+                                       with_scores=True)
+    sync(logits.device)
+    require(torch.equal(got, want),
+            f"gumbel_argmax tokens disagree: {tag}: "
+            f"{int((got != want).sum())} of {B}")
+    require(torch.equal(scores.view(torch.int32), best.view(torch.int32)),
+            f"gumbel_argmax winning scores disagree: {tag}")
+    return got
+
+
+def phase_inference_parity(device) -> dict:
+    """Kernel F against its plain version on the card: every shape x
+    (inv_temp, top_k) x decorrelator, counters below and past 2**32, the
+    reference's (V, B) layout as a view, all-masked columns, top-1, and
+    scores that tie at -0.0 / +0.0."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.inference.kernels import gumbel_argmax as ga
+    n = 0
+    t0 = time.perf_counter()
+    for V, B in INF_SHAPES:
+        logits, h, x0 = _ga_case(V, B, device)
+        for inv_temp, top_k in INF_OPTIONS:
+            th = (torch.topk(logits, top_k, dim=-1).values[:, -1] if top_k
+                  else torch.full((B,), float("-inf"), device=device))
+            for deco in ("splitmix64", "fmix32"):
+                for ctr in (977, HIGH_OFFSET):
+                    got = _ga_check(f"V={V} B={B} inv_temp={inv_temp} "
+                                    f"top_k={top_k} {deco} ctr={ctr}",
+                                    logits, h, x0, ctr, th, inv_temp, deco)
+                    if top_k:
+                        rows = torch.arange(B, device=device)
+                        require(bool((logits[rows, got.long()] >= th).all()),
+                                "a sampled token lies outside its top-k set")
+                    n += 1
+        # the reference's vocab-major layout, as a strided view
+        lt = logits.T.contiguous()
+        th = torch.full((B,), float("-inf"), device=device)
+        _ga_check(f"V={V} B={B} vocab-major view", lt.T, h, x0, 5, th, 1.0)
+        # all-masked columns give token 0; top-1 is the argmax
+        masked = logits.clone()
+        masked[0] = float("-inf")
+        th[B // 2] = float("inf")
+        got = _ga_check(f"V={V} B={B} all-masked", masked, h, x0,
+                        HIGH_OFFSET, th, 1.0)
+        require(got[0].item() == 0 and got[B // 2].item() == 0,
+                "an all-masked column did not give token 0")
+        top1 = torch.topk(logits, 1, dim=-1).values[:, -1]
+        got = _ga_check(f"V={V} B={B} top_k=1", logits, h, x0, 977, top1, 2.0)
+        require(torch.equal(got.long(), torch.argmax(logits, -1)),
+                "top_k = 1 is not the argmax")
+        n += 3
+        del logits, lt, masked
+    # -0.0 and +0.0 scores tie; the first index wins (tests/test_torch_gpu)
+    x0, h_fam = engine.family_from_seed(7, 0xD0)
+    hv = engine.derive_leaf_host(h_fam, 13)
+    ctr = 24235 - 5
+    g = engine.generate(engine.GenPlan(
+        x0=x0, h=engine.leaf_limbs([hv], device), num_steps=40, ctr=ctr,
+        sampler="gumbel"))[:, 0]
+    logits = torch.full((1, 40), -100.0, device=device)
+    logits[0, 5] = -0.0
+    logits[0, 9] = -g[9]
+    got = _ga_check("-0.0 / +0.0 tie", logits, ga.leaf_words([hv], device),
+                    x0, ctr, torch.full((1,), float("-inf"), device=device),
+                    1.0)
+    neg_zero = g[5].item() == 0.0 and bool(torch.signbit(g[5]))
+    require(not neg_zero or got.item() == 5, "-0.0 lost its tie to +0.0")
+    n += 1
+    log(f"inference parity: {n} kernel-vs-plain checks passed in "
+        f"{time.perf_counter() - t0:.1f} s (tokens equal, winning scores "
+        f"bit-equal; the -0.0 noise case {'ran' if neg_zero else 'did not occur'} "
+        f"on this card's logf)")
+    return {"gumbel_argmax": 0.0}
+
+
+def _inference_report(label: str, rep) -> dict:
+    j = rep.to_json()
+    log(f"inference {label}: {j['retired']}/{j['admitted']} sequences, "
+        f"{j['total_tokens']} tokens in {j['decode_steps']} steps; "
+        f"{rep.tokens_per_s:.1f} tokens/s; p50 "
+        f"{rep.result.latency_percentiles()['p50_ms']:.4f} ms, p99 "
+        f"{rep.result.latency_percentiles()['p99_ms']:.4f} ms per step; "
+        f"occupancy {rep.result.occupancy:.4f}; calls/step "
+        f"{j['calls_per_step']}; digest {j['digest'][:16]} == two-pass "
+        f"{(j['parity_digest'] or '-')[:16]}; wall {rep.wall_seconds:.3f} s")
+    require(j["calls_per_step"] == 1.0, f"{label}: calls/step {j}")
+    require(j["parity_digest"] == j["digest"], f"{label}: parity digest")
+    require(j["retired"] == j["admitted"] == rep.config.sequences,
+            f"{label}: not every sequence was served")
+    for toks in rep.result.transcripts.values():
+        require(len(toks) >= rep.config.min_len and
+                all(0 <= t < rep.config.vocab for t in toks),
+                f"{label}: a transcript is out of range")
+    return j
+
+
+def phase_inference(device) -> dict:
+    """The inference tier's main path at full width, through the user entry
+    points: run_offline with parity at temperature 1 and with top-k 50,
+    then kill-and-replay of ``python -m repro_torch.inference`` in a
+    subprocess against the fault-free digest."""
+    import os
+    import shutil
+    from repro_torch.inference import ScheduleConfig, run_offline
+    from repro_torch.inference.kernels import gumbel_argmax as ga
+    from repro_torch.kernels import fused_dropout as fd, mc
+    from repro_torch.kernels import thundering_block as tb
+    base = ScheduleConfig(capacity=64, vocab=INF_VOCAB,
+                          sequences=INF_SEQUENCES, rate=8.0, seed=0)
+    # warm-up: first-call costs (the library load, torch's first top-k)
+    run_offline(dataclasses.replace(base, sequences=4, top_k=50),
+                device=device)
+    tb.reset_counts()
+    mc.reset_counts()
+    fd.reset_counts()
+    ga.reset_counts()
+    t0 = time.perf_counter()
+    reports = {}
+    for label, cfg in (("temperature 1", base),
+                       ("top_k 50", dataclasses.replace(base, top_k=50))):
+        reports[label] = _inference_report(
+            label, run_offline(cfg, parity=True, device=device))
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = {"gumbel_argmax": ga.fused_argmax.launches}
+    plain_runs = (ga.fused_argmax_plain.cuda_runs
+                  + tb.thundering_ctr_plain.cuda_runs
+                  + tb.thundering_faithful_plain.cuda_runs)
+    steps = sum(r["decode_steps"] for r in reports.values())
+    log(f"inference path: {wall:.2f} s wall; launches {launches} "
+        f"({steps} fused decode steps); thundering_ctr launches "
+        f"{tb.thundering_ctr.launches} (arrivals, admissions, two-pass "
+        f"noise); plain versions run on the card: {plain_runs}")
+    require(launches["gumbel_argmax"] == steps,
+            f"kernel F launched {launches['gumbel_argmax']} times for "
+            f"{steps} fused decode steps")
+    require(plain_runs == 0, "a plain version ran on a CUDA tensor")
+    require(reports["temperature 1"]["digest"] !=
+            reports["top_k 50"]["digest"], "top-k did not change the tokens")
+
+    # kill-and-replay in a subprocess: exits 1 at decode step 6, the
+    # restart on its journal gives the fault-free digest
+    work = ROOT / "build" / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    small = dataclasses.replace(base, sequences=INF_KILL_SEQUENCES)
+    clean = run_offline(small, device=device).result.digest
+    args = [sys.executable, "-m", "repro_torch.inference", "--batch", "64",
+            "--vocab", str(INF_VOCAB), "--sequences", str(INF_KILL_SEQUENCES),
+            "--rate", "8", "--seed", "0", "--journal", str(work / "j.jsonl")]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    killed = subprocess.run(args + ["--fault-plan", "kill@6"], env=env,
+                            cwd=ROOT, capture_output=True, text=True,
+                            timeout=300)
+    require(killed.returncode == 1, f"the killed run exited "
+            f"{killed.returncode}, not 1: {killed.stderr[-2000:]}")
+    again = subprocess.run(args + ["--digest-out", str(work / "d.txt")],
+                           env=env, cwd=ROOT, capture_output=True, text=True,
+                           timeout=300)
+    require(again.returncode == 0, f"the replay failed: "
+            f"{again.stderr[-2000:]}")
+    replayed = (work / "d.txt").read_text().strip()
+    log(f"kill-and-replay ({INF_KILL_SEQUENCES} sequences, kill@6): killed "
+        f"run exit 1; restart digest {replayed[:16]} == fault-free "
+        f"{clean[:16]}; {time.perf_counter() - t0:.1f} s for both "
+        f"subprocesses; {again.stdout.strip()}")
+    require(replayed == clean, "the replayed digest differs from the "
+                               "fault-free run's")
+    return launches
+
+
+def phase_inference_timing(device) -> list:
+    """Kernel F at (V, B) = (256000, 64) and (256000, 256): ms, elements
+    per s, bound, plain ms, and two torch samplers on the same logits."""
+    import torch
+    from repro_torch.inference.kernels import gumbel_argmax as ga
+    int_ops, all_ops = GA_OPS_PER_ELEMENT
+    rows = []
+    log("inference timing (CUDA events, tokens preallocated):")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    for B in INF_BATCHES:
+        V = INF_VOCAB
+        n = V * B
+        logits, h, x0 = _ga_case(V, B, device)
+        th = torch.full((B,), float("-inf"), device=device)
+        out = torch.empty(B, dtype=torch.int32, device=device)
+        ms = time_cuda(lambda: ga.fused_argmax(logits, h, x0, 977, th,
+                                               inv_temp=1.0, out=out),
+                       reps=50)
+        plain_ms = time_cuda(lambda: ga.fused_argmax_plain(
+            logits, h, x0, 977, th, inv_temp=1.0), reps=1, warmup=1)
+        u = torch.empty((B, V), device=device)
+
+        def philox():
+            torch.rand((B, V), generator=gen, device=device, out=u)
+            g = -torch.log(-torch.log(u))
+            return torch.argmax(logits * 1.0 + g, -1)
+        lib_ms = time_cuda(philox, reps=20)
+        multi_ms = time_cuda(lambda: torch.multinomial(
+            torch.softmax(logits * 1.0, -1), 1, generator=gen), reps=20)
+        n_bytes = n * 4 + B * (8 + 4 + 4)
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = max(n * int_ops / INT32_OPS_PER_S,
+                    n * all_ops / DISPATCH_OPS_PER_S) * 1e3
+        b_ms, b_by = max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
+                                           else "bytes")
+        log(f"  gumbel_argmax (V, B) = ({V}, {B}): {ms:.4f} ms = "
+            f"{n / (ms * 1e-3) / 1e9:.1f} G elements/s, "
+            f"{n * 4 / (ms * 1e-3) / 1e9:.1f} GB/s of logits; bound "
+            f"{b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, operations "
+            f"{t_ops:.4f} ms; {b_ms / ms * 100:.1f}% of the bound's speed); "
+            f"plain {plain_ms:.2f} ms; torch Philox gumbel-max (rand, "
+            f"-log(-log u), scaled add, argmax) {lib_ms:.4f} ms; "
+            f"torch.multinomial(softmax) {multi_ms:.4f} ms")
+        rows.append(dict(name="gumbel_argmax", B=B, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         multinomial_ms=multi_ms))
+        del logits, u
+    _decode_step_breakdown(device)
+    return rows
+
+
+def _decode_step_breakdown(device) -> None:
+    """Where one decode step's time goes at (B, V) = (64, 256000): the
+    synthetic logit model and top-k on CUDA events, a whole
+    ``sample_step`` on the host clock (lease, leaf offsets, their copy,
+    kernel F, the tokens' copy back), and the device's busy share over a
+    profiled ``run_offline``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.inference import (ActiveSeq, GumbelMaxSampler,
+                                       SamplingSpec, ScheduleConfig,
+                                       SyntheticLogitModel, run_offline)
+    B, V = 64, INF_VOCAB
+    model = SyntheticLogitModel(B, V, device=device)
+    hashes = np.arange(B, dtype=np.uint32) * np.uint32(0x9E3779B1)
+    pos = np.arange(B, dtype=np.uint32)
+    logit_ms = time_cuda(lambda: model(hashes, pos), reps=20)
+    logits = model(hashes, pos)
+    topk_ms = time_cuda(lambda: torch.topk(logits, 50, dim=-1), reps=20)
+    for top_k in (0, 50):
+        smp = GumbelMaxSampler.standalone(
+            seed=SEED, vocab=V, capacity=B, device=device,
+            spec=SamplingSpec(top_k=top_k))
+        active = [ActiveSeq(slot=i, seq_id=f"s{i}", tenant_id=f"s{i}",
+                            tag=smp.registry.register(f"s{i}").tag(0),
+                            position=0) for i in range(B)]
+        for step in range(3):
+            smp.sample_step(step, logits, active)
+        reps = 50
+        t0 = time.perf_counter()
+        for step in range(3, 3 + reps):
+            smp.sample_step(step, logits, active)
+        step_ms = (time.perf_counter() - t0) / reps * 1e3
+        log(f"  decode step parts at (B, V) = ({B}, {V}): sample_step "
+            f"top_k={top_k} {step_ms:.4f} ms (host clock, {reps} steps)")
+    log(f"  synthetic logit model {logit_ms:.4f} ms; torch.topk(k=50) "
+        f"{topk_ms:.4f} ms (CUDA events)")
+    cfg = ScheduleConfig(capacity=B, vocab=V, sequences=INF_SEQUENCES,
+                         rate=8.0, seed=0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rep = run_offline(cfg, device=device)
+    busy = _device_busy_us(prof)
+    wall = sum(rep.result.step_seconds) * 1e6
+    if busy > 0.0:
+        log(f"  run_offline under the profiler: device busy {busy / 1e3:.3f} "
+            f"ms of {wall / 1e3:.3f} ms of decode steps = "
+            f"{busy / wall * 100:.1f} % (idle {100 - busy / wall * 100:.1f} "
+            f"%); busy time includes the arrival and admission draws")
+    else:
+        log("  run_offline device busy share: not measured (the profiler "
+            "recorded no device time)")
+
+
 def run_phase(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -922,6 +1255,8 @@ KERNEL_SOURCES = {
                     "src/repro/kernels/mc.py:51"),
     "option_partials": ("src/repro_torch/csrc/mc.cu",
                         "src/repro/kernels/mc.py:64"),
+    "gumbel_argmax": ("src/repro_torch/csrc/gumbel_argmax.cu",
+                      "src/repro/inference/kernels/gumbel_argmax.py:104"),
 }
 
 
@@ -949,11 +1284,17 @@ def main() -> int:
         run_phase("build", phase_build)
         worst = run_phase("parity", phase_parity, device)
         worst.update(run_phase("apps parity", phase_apps_parity, device))
+        worst.update(run_phase("inference parity", phase_inference_parity,
+                               device))
         run_phase("golden", phase_golden, device)
         launches = run_phase("main path", phase_main_path, device)
         launches.update(run_phase("apps path", phase_apps, device))
+        launches.update(run_phase("inference path", phase_inference, device))
         timing = run_phase("timing", phase_timing, device)
         timing += run_phase("apps timing", phase_apps_timing, device)
+        inf_rows = run_phase("inference timing", phase_inference_timing,
+                             device)
+        timing += [r for r in inf_rows if r["B"] == 64]   # the batcher's B
         run_phase("delivery", phase_delivery, device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -70,6 +70,13 @@ def derive_leaf_host(h_parent: int, tag: int) -> int:
     return (splitmix.splitmix64_host(h_parent, tag & M64) << 1) & M64
 
 
+def leaf_limbs(hs: Sequence[int], device="cpu") -> U64Pair:
+    """(S,) limb tensors of python-int leaf offsets, in one copy."""
+    pairs = torch.tensor([u64.split64(h) for h in hs], dtype=torch.int64,
+                         device=device).reshape(-1, 2)
+    return pairs[:, 0].contiguous(), pairs[:, 1].contiguous()
+
+
 def leaf_table(h_family: int, num_streams: int, device="cpu") -> U64Pair:
     """(S,) even leaf offsets h_s for streams 0..S-1 of a family."""
     sid = torch.arange(num_streams, dtype=torch.int64, device=device)

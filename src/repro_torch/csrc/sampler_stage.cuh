@@ -1,8 +1,9 @@
 // ThundeRiNG arithmetic and sampler output stages, in registers.
 //
-// Shared by the block kernels of thundering_block.cu.  Every function here
-// is the device form of a function in repro_torch/core (lcg, splitmix,
-// xorshift, sampler) and must agree with it: bit for bit on the integer
+// Shared by every kernel of csrc/ (block generators, Monte-Carlo, dropout,
+// gumbel-max sampling).  Every function here is the device form of a
+// function in repro_torch/core (lcg, splitmix, xorshift, sampler) and must
+// agree with it: bit for bit on the integer
 // and threshold stages, within a few ULP where logf / sinf / cosf enter
 // (CUDA's logf is within 1 ULP, sinf / cosf within 2 ULP of the true
 // value).  The sources build with -fmad=false, so a product that feeds an
@@ -143,6 +144,11 @@ __device__ __forceinline__ float tb_uniform(u32 b) {
   return (float)(b >> 8) * 0x1p-24f;
 }
 
+// Standard Gumbel by double-log inversion (the "gumbel" stage), log(0)-safe.
+__device__ __forceinline__ float tb_gumbel(u32 b) {
+  return -logf(-logf(fmaxf(tb_uniform(b), TB_TINY_F32)));
+}
+
 __device__ __forceinline__ u32 tb_remix(u32 b, u32 salt) {
   return tb_fmix32(b + salt * 0x9E3779B9u);
 }
@@ -189,7 +195,7 @@ __device__ __forceinline__ float tb_float_stage(u32 b, const Stage& st) {
       return x * st.f2;
     }
     case STAGE_GUMBEL:
-      return -logf(-logf(fmaxf(tb_uniform(b), TB_TINY_F32)));
+      return tb_gumbel(b);
     case STAGE_CATEGORICAL: {
       if (st.n_table == 1) return 0.0f;
       float bin = floorf(tb_uniform(b) * (float)st.n_table);

@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: library name -> its .cu source; headers in csrc/ enter every hash.
 LIBRARIES = {"thundering_block": "thundering_block.cu", "mc": "mc.cu",
-             "fused_dropout": "fused_dropout.cu"}
+             "fused_dropout": "fused_dropout.cu",
+             "gumbel_argmax": "gumbel_argmax.cu"}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -301,7 +301,14 @@ PORT_MODULES = [
     "repro_torch.kernels.ref", "repro_torch.kernels.build",
     "repro_torch.kernels.thundering_block", "repro_torch.kernels.mc",
     "repro_torch.kernels.fused_dropout", "repro_torch.kernels.ops",
-    "repro_torch.runtime", "repro_torch.runtime.blocks"]
+    "repro_torch.runtime", "repro_torch.runtime.blocks",
+    "repro_torch.runtime.fault", "repro_torch.service",
+    "repro_torch.service.tenants", "repro_torch.service.frontend",
+    "repro_torch.service.audit", "repro_torch.inference",
+    "repro_torch.inference.kernels",
+    "repro_torch.inference.kernels.gumbel_argmax",
+    "repro_torch.inference.sampling", "repro_torch.inference.slots",
+    "repro_torch.inference.scheduler", "repro_torch.inference.harness"]
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -321,6 +328,12 @@ def test_port_imports_neither_jax_nor_reference():
             "blocks.price_option(svc, num_lanes=8, draws_per_lane=16)\n"
             "svc.open('d')\n"
             "ops.fused_dropout(torch.ones(4, 8), svc.lease('d', 32), 0.5)\n"
+            "from repro_torch.inference import GumbelMaxSampler, ActiveSeq\n"
+            "s = GumbelMaxSampler.standalone(seed=2, vocab=16, capacity=2, "
+            "device='cpu')\n"
+            "a = [ActiveSeq(slot=0, seq_id='q', tenant_id='q', "
+            "tag=s.registry.register('q').tag(0), position=0)]\n"
+            "assert s.sample_step(0, torch.zeros(2, 16), a).shape == (2,)\n"
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"
             "print('isolated')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -9,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import inference
 from repro_torch.core import engine, golden, sampler, stream, u64
+from repro_torch.inference.kernels import gumbel_argmax as ga
 from repro_torch.kernels import fused_dropout as fd
 from repro_torch.kernels import mc, ops
 from repro_torch.kernels import thundering_block as tb
@@ -178,3 +180,110 @@ def test_apps_run_on_the_kernels(cuda):
     assert mc.pi_partials_plain.cuda_runs == 0
     assert mc.option_partials_plain.cuda_runs == 0
     assert fd.fused_dropout_2d_plain.cuda_runs == 0
+
+
+# ---------------------------------------------------------------------------
+# kernel F: fused gumbel-max sampling
+# ---------------------------------------------------------------------------
+
+GA_SHAPES = [(256000, 64), (256000, 256), (1000, 130), (300, 20), (64, 8)]
+GA_OPTIONS = [(1.0, 0), (1.25, 0), (1.0, 16), (2.0, 4)]
+
+
+def _ga_case(V, B, device, seed=9):
+    """(B, V) logits and (B,) leaf words of family (seed, 0xD0)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    logits = torch.randn((B, V), generator=gen, device=device)
+    x0, h_fam = engine.family_from_seed(seed, 0xD0)
+    h = ga.leaf_words([engine.derive_leaf_host(h_fam, t) for t in range(B)],
+                      device)
+    return logits, h, x0
+
+
+def _ga_check(logits, h, x0, ctr, th, inv_temp, deco="splitmix64"):
+    """Kernel F against its plain version: tokens equal, winning scores
+    equal bit for bit; returns the tokens."""
+    B = logits.shape[0]
+    scores = torch.empty(B, device=logits.device)
+    got = ga.fused_argmax(logits, h, x0, ctr, th, inv_temp=inv_temp,
+                          deco=deco, scores_out=scores)
+    want, best = ga.fused_argmax_plain(logits, h, x0, ctr, th,
+                                       inv_temp=inv_temp, deco=deco,
+                                       with_scores=True)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(scores.view(torch.int32), best.view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("deco", ["splitmix64", "fmix32"])
+@pytest.mark.parametrize("inv_temp,top_k", GA_OPTIONS)
+@pytest.mark.parametrize("V,B", GA_SHAPES)
+def test_gumbel_argmax_kernel_matches_plain_version(cuda, V, B, inv_temp,
+                                                    top_k, deco):
+    logits, h, x0 = _ga_case(V, B, cuda)
+    th = (torch.topk(logits, top_k, dim=-1).values[:, -1] if top_k
+          else torch.full((B,), float("-inf"), device=cuda))
+    for ctr in (977, 2 ** 32 + 12345):
+        got = _ga_check(logits, h, x0, ctr, th, inv_temp, deco)
+        if top_k:
+            assert (logits[torch.arange(B, device=cuda), got.long()]
+                    >= th).all()
+
+
+def test_gumbel_argmax_kernel_reads_a_vocab_major_view(cuda):
+    logits, h, x0 = _ga_case(1000, 130, cuda)
+    lt = logits.T.contiguous()                  # the reference's (V, B)
+    th = torch.full((130,), float("-inf"), device=cuda)
+    got = _ga_check(lt.T, h, x0, 5, th, 1.0)
+    assert torch.equal(got, ga.fused_argmax(logits, h, x0, 5, th,
+                                            inv_temp=1.0))
+
+
+def test_gumbel_argmax_kernel_masked_columns_and_top_1(cuda):
+    logits, h, x0 = _ga_case(300, 20, cuda)
+    th = torch.full((20,), float("-inf"), device=cuda)
+    th[[1, 7]] = float("inf")                   # everything masked
+    logits[3] = float("-inf")                   # every logit -inf
+    got = _ga_check(logits, h, x0, 2 ** 33, th, 1.0)
+    assert got[[1, 3, 7]].tolist() == [0, 0, 0]
+    top1 = torch.topk(logits, 1, dim=-1).values[:, -1]
+    top1[[1, 7]] = float("inf")
+    got = _ga_check(logits, h, x0, 2 ** 33, top1, 2.0)
+    keep = [b for b in range(20) if b not in (1, 3, 7)]
+    assert torch.equal(got[keep].long(), torch.argmax(logits[keep], -1))
+
+
+def test_gumbel_argmax_kernel_negative_zero_ties(cuda):
+    """Scores -0.0 (index 5) and +0.0 (index 9) tie; the first wins.
+    Leaf tag 13 of family (7, 0xD0) draws u = 6171993 / 2^24 at counter
+    24235, whose log is -1 exactly where logf rounds it so."""
+    V, v0, v1 = 40, 5, 9
+    x0, h_fam = engine.family_from_seed(7, 0xD0)
+    h = engine.derive_leaf_host(h_fam, 13)
+    ctr = 24235 - v0
+    plan = engine.GenPlan(x0=x0, h=engine.leaf_limbs([h], cuda),
+                          num_steps=V, ctr=ctr, sampler="gumbel")
+    g = engine.generate(plan)[:, 0]
+    logits = torch.full((1, V), -100.0, device=cuda)
+    logits[0, v0] = -0.0
+    logits[0, v1] = -g[v1]
+    th = torch.full((1,), float("-inf"), device=cuda)
+    got = _ga_check(logits, ga.leaf_words([h], cuda), x0, ctr, th, 1.0)
+    if g[v0].item() == 0.0:
+        assert got.tolist() == [v0]
+
+
+def test_batcher_on_card_fused_equals_twopass(cuda):
+    ga.reset_counts()
+    tb.reset_counts()
+    cfg = inference.ScheduleConfig(capacity=16, vocab=1000, sequences=24,
+                                   rate=4.0, seed=5, top_k=50)
+    rep = inference.run_offline(cfg, parity=True, device=cuda)
+    j = rep.to_json()
+    assert j["parity_digest"] == j["digest"] and j["calls_per_step"] == 1.0
+    assert ga.fused_argmax.launches == j["decode_steps"]
+    assert tb.thundering_ctr.launches > 0
+    assert ga.fused_argmax_plain.cuda_runs == 0
+    cpu = inference.run_offline(cfg, device="cpu")
+    assert cpu.result.digest == j["digest"]
