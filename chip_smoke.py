@@ -3,8 +3,11 @@
 
 Builds the CUDA kernels of ``src/repro_torch/csrc`` with nvcc, holds each
 kernel against its plain PyTorch version (every sampler stage of the block
-generators; pi and option partials; fused dropout in float32 and
-bfloat16; gumbel-max token sampling), drives the port's three main paths at
+generators, at S = 1, ragged S, odd row counts and misaligned out= views;
+pi and option partials; fused dropout in float32 and bfloat16; gumbel-max
+token sampling), holds the block generators to the recorded digests of
+their output bytes and kernel B's on-card GF(2) tile jumps to the host's,
+drives the port's three main paths at
 full width - the generator (engine -> stream -> BlockService) at the
 README's bulk size, S = 2**14 streams by T = 4096 steps, the paper's
 applications (ops.estimate_pi, ops.price_option, their leased forms,
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -47,19 +51,39 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 # The block generators' bits stage, counted from ``cuobjdump -sass`` of
 # their sm_90a build (nvcc 12.8) with tools/sass_loop_counts.py over the
-# path one row pair (two elements) takes through the row loop with the
-# bits stage (the stage switch's other cases left out): (INT32-pipe
-# instructions, all instructions) per element.
-#   ctr splitmix64: 0580-05f0, 06b0-0940, 0950-0970, 0a30-0dd0, 0e40-0eb0,
-#     11c00-11cf0: 66 INT32 of 136                                     /2
-#   ctr fmix32: 0580-06a0, 0830-0940, 0950-0a20, 0bd0-0dd0, 0e40-0eb0,
-#     11c00-11cf0: 53 INT32 of 108                                     /2
-#   faithful: 06f0-0b70, 0be0-0d40, 11e30-11ef0: 52 INT32 of 109       /2
+# path one loop trip takes with whole, aligned 16-byte runs (the element-
+# by-element store of a ragged or misaligned run left out): (INT32-pipe
+# instructions, all instructions) per element.  A trip of kernel A is one
+# row pair of 4 columns (8 elements), of kernel B the same.
+#   ctr splitmix64 (thundering_ctr_kernel<0,0,0>): 0ba0-1b50,
+#     1bc0-1d20, 1d90-1ea0: 177 INT32 of 293                           /8
+#   ctr fmix32 (thundering_ctr_kernel<0,0,1>): 0910-12b0, 1320-13f0,
+#     1460-1530: 115 INT32 of 183                                      /8
+#   faithful (thundering_faithful_kernel<0,0>): 0c50-1500, 1590-16d0,
+#     1740-1830: 114 INT32 of 177                                      /8
 # The 64-bit multiplies run as IMAD on the FMA pipe; they count in the
-# issue total.
-BLOCK_OPS_PER_ELEMENT = {"splitmix64": (66 / 2, 136 / 2),
-                         "fmix32": (53 / 2, 108 / 2),
-                         "faithful": (52 / 2, 109 / 2)}
+# issue total.  MATVEC_OPS is one 128x128 GF(2) matvec (32 nibble-table
+# lookups) of kernel B's tile-state jump (tb_tile_states_kernel), the
+# loop 0290-1170: 199 INT32 of 239.
+BLOCK_OPS_PER_ELEMENT = {"splitmix64": (177 / 8, 293 / 8),
+                         "fmix32": (115 / 8, 183 / 8),
+                         "faithful": (114 / 8, 177 / 8)}
+MATVEC_OPS = (199.0, 239.0)
+
+# Earlier times at the same shapes, logged beside this run's: chip_smoke
+# PR 13 run 1 (kernel A bits, kernels B-F) and PR 11 (kernel A's uniform
+# and normal stages), NVIDIA H100 80GB HBM3, 700.00 W.
+EARLIER_MS = {"thundering_ctr splitmix64 bits float32": 0.2525,
+              "thundering_ctr fmix32 bits float32": 0.2065,
+              "thundering_ctr splitmix64 uniform float32": 0.2872,
+              "thundering_ctr splitmix64 uniform bfloat16": 0.2969,
+              "thundering_ctr splitmix64 normal float32": 0.3710,
+              "thundering_faithful bits (kernel alone, tile states ready)":
+                  0.1696,
+              "pi_partials": 1.0349, "option_partials": 1.9881,
+              "fused_dropout_2d torch.bfloat16": 0.2428,
+              "fused_dropout_2d torch.float32": 0.2969,
+              "gumbel_argmax B=64": 0.1000, "gumbel_argmax B=256": 0.3569}
 
 # The applications' kernels, counted from ``cuobjdump -sass`` of their
 # sm_90a build (nvcc 12.8) with tools/sass_loop_counts.py over the hot
@@ -130,6 +154,17 @@ STAGES = [
     ("categorical[0.5,0.25,0.125,0.125]", ("float32", "bfloat16")),
     ("categorical[1.0]", ("float32",)),
 ]
+
+
+# Kernel A and B instantiations on the main path, whose registers the build
+# phase prints (the other (stage, output type) instantiations are summed).
+MAIN_PATH_KERNELS = (
+    "thundering_ctr_kernelILi0ELi0ELi0E", "thundering_ctr_kernelILi0ELi0ELi1E",
+    "thundering_ctr_kernelILi1ELi1ELi0E", "thundering_ctr_kernelILi1ELi2ELi0E",
+    "thundering_ctr_kernelILi2ELi1ELi0E",
+    "thundering_ctr_rows_kernelILi0ELi0ELi0E",
+    "thundering_faithful_kernelILi0ELi0E", "tb_jump_lanes_kernel",
+    "tb_tile_states_kernel")
 
 
 class SmokeFailure(Exception):
@@ -218,27 +253,53 @@ def phase_build() -> float:
     secs = time.perf_counter() - t0
     for name, path in paths.items():
         log(f"built {name}: {path.name}")
-        info = path.with_suffix(".ptxas.txt")
-        for line in info.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+        funcs = re.split(r"Compiling entry function '",
+                         path.with_suffix(".ptxas.txt").read_text())[1:]
+        regs, spills = [], []
+        for text in funcs:
+            fn = text.split("'")[0]
+            regs.append(int(re.search(r"Used (\d+) registers",
+                                      text).group(1)))
+            spill = re.search(r"(\d+) bytes spill stores", text)
+            if spill and int(spill.group(1)):
+                spills.append(f"{fn} ({spill.group(1)} bytes)")
+            if name != "thundering_block" or any(
+                    k in fn for k in MAIN_PATH_KERNELS):
+                log(f"  ptxas: {fn}: {regs[-1]} registers")
+        log(f"  ptxas: {len(funcs)} kernels, {min(regs)}-{max(regs)} "
+            f"registers; spill stores in {len(spills)}: {spills}")
     log(f"build seconds: {secs:.3f}")
     return secs
 
 
-def _faithful_states(plan, rows: int, bt: int, device):
+def _block_pair(kname, deco, plan, T, spec, dtype, out=None):
+    """(kernel, plain) outputs of kernel A or B on one plan's inputs."""
     from repro_torch.core import engine
     from repro_torch.kernels import thundering_block as tb
-    return tb.states_tensor(
-        engine._faithful_tile_states(plan, bt, -(-rows // bt)), device)
+    kw = dict(sampler=spec, out_dtype=dtype)
+    if kname == "thundering_ctr":
+        args = (plan.x0, plan.ctr, T, plan.h)
+        kernel, plain = tb.thundering_ctr, tb.thundering_ctr_plain
+        kw["deco"] = deco
+    else:
+        args = (plan.x0, plan.ctr, T, plan.h,
+                tb.lane_states(plan.num_streams, plan.device))
+        kernel, plain = tb.thundering_faithful, tb.thundering_faithful_plain
+        kw["block_t"] = tb.tile_rows(engine.DEFAULT_BLOCK_T, T)
+    got = kernel(*args, out=out, **kw)
+    return got, plain(*args, **kw)
 
 
 def phase_parity(device) -> dict:
-    """Every kernel x stage x dtype x shape against the plain version."""
+    """Every kernel x stage x dtype x shape against the plain version:
+    the main path's shapes, S = 1 (the stream API), S that no 16-byte run
+    divides, odd row counts, and out= views one element past a 16-byte
+    line."""
+    import torch
     from repro_torch.core import engine, sampler
-    from repro_torch.kernels import thundering_block as tb
     shapes = [(40, 130, 12345), (1, 1, 7), (2, 1, HIGH_OFFSET),
-              (256, S_FULL, HIGH_OFFSET)]
+              (33, 1, 12345), (7, 3, HIGH_OFFSET), (9, 5, 12345),
+              (5, S_FULL + 1, 2 ** 32), (256, S_FULL, HIGH_OFFSET)]
     worst = {"thundering_ctr": 0.0, "thundering_faithful": 0.0}
     stage_ulp: dict = {}
     n = 0
@@ -248,30 +309,21 @@ def phase_parity(device) -> dict:
     for T, S, off in shapes:
         plan = engine.make_plan(seed=SEED, num_streams=S, num_steps=T,
                                 offset=off, device=device)
-        bt = tb.tile_rows(engine.DEFAULT_BLOCK_T, T)
-        st = _faithful_states(plan, T, bt, device)
         for spec_text, dtypes in STAGES:
             spec = sampler.parse(spec_text)
             if spec[0] == "normal" and T % 2:
                 continue
             for dtype in dtypes:
                 for kname, deco in cases:
-                    if deco is not None:
-                        got = tb.thundering_ctr(plan.x0, plan.ctr, T, plan.h,
-                                                deco=deco, sampler=spec,
-                                                out_dtype=dtype)
-                        want = tb.thundering_ctr_plain(
-                            plan.x0, plan.ctr, T, plan.h, deco=deco,
-                            sampler=spec, out_dtype=dtype)
-                    else:
-                        got = tb.thundering_faithful(
-                            plan.x0, plan.ctr, T, plan.h, st, block_t=bt,
-                            sampler=spec, out_dtype=dtype)
-                        want = tb.thundering_faithful_plain(
-                            plan.x0, plan.ctr, T, plan.h, st, block_t=bt,
-                            sampler=spec, out_dtype=dtype)
+                    out = None
+                    if S != S_FULL:      # an out= view 1 element past a line
+                        rdt = sampler.result_dtype(spec, dtype)
+                        out = torch.empty(T * S + 1, dtype=rdt,
+                                          device=device)[1:]
+                    got, want = _block_pair(kname, deco, plan, T, spec,
+                                            dtype, out=out)
                     sync(device)
-                    ok, err, ulp = compare(got, want, spec[0])
+                    ok, err, ulp = compare(got.view(T, S), want, spec[0])
                     tag = f"{kname}/{deco or 'xorshift128'} {spec_text} " \
                           f"{dtype} T={T} S={S} off={off}"
                     require(ok, f"parity failed: {tag}: max_abs_err={err} "
@@ -285,6 +337,36 @@ def phase_parity(device) -> dict:
     for key in sorted(stage_ulp):
         log(f"  max ulp {key}: {stage_ulp[key]}")
     return worst
+
+
+def phase_digests(device) -> None:
+    """Kernels A and B reproduce the recorded bytes of every stage x dtype,
+    both decorrelators and faithful mode (what journal replay needs; the
+    float stages' ULP check above cannot show it); and kernel B's device
+    GF(2) tile states equal the host jump at four counters."""
+    import numpy as np
+    from repro_torch.core import engine, u64
+    from repro_torch.kernels import digests
+    from repro_torch.kernels import thundering_block as tb
+    t0 = time.perf_counter()
+    got = digests.compute(device)
+    bad = digests.mismatches(got)
+    require(set(got) == set(digests.RECORDED) and not bad,
+            f"kernel bytes differ from the recorded digests: {bad[:5]}")
+    log(f"digests: {len(got)} outputs equal the recorded bytes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    S, T, bt = 1000, 1000, 64
+    for ctr in (0, 12345, HIGH_OFFSET, 2 ** 63 + 1):
+        plan = engine.make_plan(seed=SEED, num_streams=S, num_steps=T,
+                                offset=ctr, mode="faithful", device=device)
+        dev = tb.faithful_tile_states(tb.lane_states(S, device), ctr, bt,
+                                      -(-T // bt))
+        host = engine._faithful_tile_states(plan, bt, -(-T // bt))
+        require(np.array_equal(u64.limbs(dev.cpu()).numpy()
+                               .astype(np.uint32), host),
+                f"device tile states != host jump_batch at ctr={ctr}")
+    log("device GF(2) tile states equal the host jump at ctr = 0, 12345, "
+        "2^32 + 12345, 2^63 + 1")
 
 
 def phase_golden(device) -> None:
@@ -315,6 +397,30 @@ def _window_check(name: str, block, plan, row0: int, rows: int,
                 f"disagrees (max_abs_err={err}, max_ulp={ulp})")
 
 
+def _count_host_jumps():
+    """Count calls of the host GF(2) jumps (engine._faithful_tile_states,
+    xorshift.jump_batch) until the returned function is called; it
+    restores them and returns the count."""
+    from repro_torch.core import engine, xorshift
+    calls = [0]
+    saved = {(engine, "_faithful_tile_states"): engine._faithful_tile_states,
+             (xorshift, "jump_batch"): xorshift.jump_batch}
+
+    def counting(fn):
+        def wrapper(*args, **kw):
+            calls[0] += 1
+            return fn(*args, **kw)
+        return wrapper
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, counting(fn))
+
+    def stop() -> int:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+        return calls[0]
+    return stop
+
+
 def phase_main_path(device) -> dict:
     """The port's main path at full size, through the user entry points."""
     import torch
@@ -322,6 +428,7 @@ def phase_main_path(device) -> dict:
     from repro_torch.kernels import thundering_block as tb
     from repro_torch.runtime.blocks import BlockService
 
+    host_jumps = _count_host_jumps()
     tb.reset_counts()
     t0 = time.perf_counter()
     base = engine.make_plan(seed=SEED, num_streams=S_FULL, num_steps=T_FULL,
@@ -370,14 +477,18 @@ def phase_main_path(device) -> dict:
                 "thundering_faithful": tb.thundering_faithful.launches}
     plain_runs = (tb.thundering_ctr_plain.cuda_runs
                   + tb.thundering_faithful_plain.cuda_runs)
+    host_jumps = host_jumps()
     log(f"main path: {main_s:.2f} s wall; launches {launches}; plain "
-        f"versions run on the card: {plain_runs}")
+        f"versions run on the card: {plain_runs}; host GF(2) jumps: "
+        f"{host_jumps}")
     log(f"producer: 8 blocks of {T_FULL}x{S_FULL} u32 (fuse=4, depth=2, "
         f"donate) in {prod_s:.3f} s = "
         f"{8 * T_FULL * S_FULL / prod_s / 1e9:.1f} GSample/s wall")
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the main path never launched: {launches}")
     require(plain_runs == 0, "a plain version ran on a CUDA tensor")
+    require(host_jumps == 0, f"the faithful card path made {host_jumps} "
+                             f"host GF(2) jumps")
 
     # what came out: shapes, dtypes, ranges, and windows against the oracle
     for name, blk in results.items():
@@ -497,10 +608,26 @@ def phase_delivery(device) -> None:
             f"(host clock, {reps} calls)")
 
 
+def _was(key: str) -> str:
+    return f" (PR 13: {EARLIER_MS[key]} ms)" if key in EARLIER_MS else ""
+
+
+def _matvecs(S: int, ctr: int, bt: int, n_tiles: int) -> int:
+    """GF(2) matvecs of kernel B's device tile-state jump: one per set bit
+    of ctr and of each tile's i * bt, for every stream."""
+    return S * (bin(ctr).count("1")
+                + sum(bin(i * bt).count("1") for i in range(n_tiles)))
+
+
 def phase_timing(device) -> list:
-    """Kernel, plain and library times at the main path's shapes."""
+    """Kernels A and B at the main path's shape: ms beside PR 13's, the
+    byte bound alone and the bound (the larger of bytes and SASS issue),
+    the plain version and torch's Philox; kernel B's prep both ways."""
+    import ctypes
+
+    import numpy as np
     import torch
-    from repro_torch.core import engine, sampler
+    from repro_torch.core import engine, lcg, sampler, u64, xorshift
     from repro_torch.kernels import thundering_block as tb
 
     plan = engine.make_plan(seed=SEED, num_streams=S_FULL, num_steps=T_FULL,
@@ -511,18 +638,23 @@ def phase_timing(device) -> list:
     gen.manual_seed(SEED)
     rows = []
 
-    def report(label, ms, out_bytes):
-        gbps = out_bytes / (ms * 1e-3) / 1e9
-        log(f"  {label}: {ms:.4f} ms  {elems / (ms * 1e-3) / 1e9:.1f} "
-            f"GSample/s  {gbps:.1f} GB/s")
-
-    def bound(out_bytes, in_bytes, ops_key):
+    def bound(out_bytes, in_bytes, ops_key, extra=(0, 0)):
         int_ops, all_ops = BLOCK_OPS_PER_ELEMENT[ops_key]
         t_bytes = (out_bytes + in_bytes) / HBM_BYTES_PER_S * 1e3
-        t_ops = max(elems * int_ops / INT32_OPS_PER_S,
-                    elems * all_ops / DISPATCH_OPS_PER_S) * 1e3
-        return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
-                                     else "bytes")
+        t_ops = max((elems * int_ops + extra[0]) / INT32_OPS_PER_S,
+                    (elems * all_ops + extra[1]) / DISPATCH_OPS_PER_S) * 1e3
+        return (max(t_bytes, t_ops),
+                "operations" if t_ops > t_bytes else "bytes", t_bytes, t_ops)
+
+    def report(label, ms, out_bytes, b=None):
+        gbps = out_bytes / (ms * 1e-3) / 1e9
+        text = (f"  {label}: {ms:.4f} ms{_was(label)}  "
+                f"{elems / (ms * 1e-3) / 1e9:.1f} GSample/s  {gbps:.1f} GB/s"
+                f"; byte bound {out_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        if b is not None:
+            text += (f", SASS issue bound {b[3]:.4f} ms: bound {b[0]:.4f} "
+                     f"ms by {b[1]} ({b[0] / ms * 100:.1f}% of its speed)")
+        log(text)
 
     log(f"timing at T={T} S={S} (CUDA events):")
     variants = [("bits", "float32", "splitmix64", 4),
@@ -530,7 +662,7 @@ def phase_timing(device) -> list:
                 ("uniform", "float32", "splitmix64", 4),
                 ("uniform", "bfloat16", "splitmix64", 2),
                 ("normal", "float32", "splitmix64", 4)]
-    ctr_ms = None
+    ctr_row = None
     for spec_text, dtype, deco, width in variants:
         spec = sampler.parse(spec_text)
         out = torch.empty((T, S), dtype=sampler.result_dtype(spec, dtype),
@@ -540,10 +672,14 @@ def phase_timing(device) -> list:
             tb.thundering_ctr(plan.x0, plan.ctr, T, plan.h, deco=deco,
                               sampler=spec, out_dtype=dtype, out=out)
         ms = time_cuda(launch, reps=20)
+        b = bound(elems * width, S * 8, deco) if spec_text == "bits" \
+            else None
         report(f"thundering_ctr {deco} {spec_text} {dtype}", ms,
-               elems * width)
+               elems * width, b)
         if (spec_text, deco) == ("bits", "splitmix64"):
-            ctr_ms = ms
+            ctr_row = dict(name="thundering_ctr", ms=ms, bound_ms=b[0],
+                           bound_by=b[1])
+        del out
     bits_spec = sampler.parse("bits")
     plain_ctr = time_cuda(lambda: tb.thundering_ctr_plain(
         plan.x0, plan.ctr, T, plan.h, sampler=bits_spec), reps=3, warmup=1)
@@ -554,34 +690,74 @@ def phase_timing(device) -> list:
                                            device=device), reps=20)
     report("library torch random_ int32 (Philox)", lib_ctr, elems * 4)
     report("library torch.rand f32 (Philox)", lib_uni, elems * 4)
-    ctr_bound, ctr_by = bound(elems * 4, S * 8, "splitmix64")
-    rows.append(dict(name="thundering_ctr", ms=ctr_ms, plain_ms=plain_ctr,
-                     bound_ms=ctr_bound, bound_by=ctr_by, library_ms=lib_ctr))
+    del lib_bits
+    rows.append(dict(ctr_row, plain_ms=plain_ctr, library_ms=lib_ctr))
 
-    faithful = dataclasses.replace(plan, mode="faithful")
+    # kernel B: its prep, the one-time lane table and the per-call jump
     bt = tb.tile_rows(engine.DEFAULT_BLOCK_T, T)
+    n_tiles = -(-T // bt)
     t0 = time.perf_counter()
-    states_np = engine._faithful_tile_states(faithful, bt, -(-T // bt))
-    prep_s = time.perf_counter() - t0
-    states = tb.states_tensor(states_np, device)
-    log(f"  faithful host prep (lane_table + GF(2) tile jumps, S={S}, "
-        f"{states_np.shape[0]} tiles): {prep_s:.3f} s")
+    table = xorshift.lane_table.__wrapped__(S)
+    lanes = tb.states_tensor(table.T.copy(), device)
+    sync(device)
+    log(f"  faithful one-time prep: lane_table({S}) on the host and its "
+        f"upload, {time.perf_counter() - t0:.3f} s (cached per S and "
+        f"device)")
+    for ctr in (0, HIGH_OFFSET):
+        faithful = engine.make_plan(seed=SEED, num_streams=S, num_steps=T,
+                                    offset=ctr, mode="faithful",
+                                    device=device)
+        t0 = time.perf_counter()
+        host = engine._faithful_tile_states(faithful, bt, n_tiles)
+        host_s = time.perf_counter() - t0
+        tb.faithful_tile_states(lanes, ctr, bt, n_tiles)
+        sync(device)
+        reps = 20
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            dev = tb.faithful_tile_states(lanes, ctr, bt, n_tiles)
+        sync(device)
+        wall_ms = (time.perf_counter() - t0) / reps * 1e3
+        ev_ms = time_cuda(lambda: tb.faithful_tile_states(
+            lanes, ctr, bt, n_tiles), reps=reps)
+        require(np.array_equal(u64.limbs(dev.cpu()).numpy().astype(np.uint32),
+                               host),
+                f"device tile states != host jump at ctr={ctr}")
+        log(f"  faithful per-call prep at ctr={ctr}, {n_tiles} tiles: device "
+            f"GF(2) jump {wall_ms:.4f} ms wall with its launches "
+            f"({ev_ms:.4f} ms CUDA events, "
+            f"{_matvecs(S, ctr, bt, n_tiles)} matvecs); the host jump it "
+            f"replaces {host_s:.3f} s (PR 13: 1.767-2.280 s)")
     out = torch.empty((T, S), dtype=torch.uint32, device=device)
+    states = tb.faithful_tile_states(lanes, plan.ctr, bt, n_tiles)
+    rec, _ = tb._stage(bits_spec, "float32", device)
+    lib = tb._lib()
+    h_hi, h_lo = tb.limb_words(plan.h[0]), tb.limb_words(plan.h[1])
+    sptr = torch.cuda.current_stream(device).cuda_stream
+
+    def kernel_b():
+        require(lib.tb_faithful_launch(
+            out.data_ptr(), T, S, lcg.advance(plan.x0, plan.ctr),
+            h_hi.data_ptr(), h_lo.data_ptr(), states.data_ptr(), n_tiles,
+            bt, ctypes.byref(rec), sptr) == 0, "tb_faithful_launch failed")
+    k_ms = time_cuda(kernel_b, reps=20)
+    kb = bound(elems * 4, S * 8 + states.numel() * 4, "faithful")
+    report("thundering_faithful bits (kernel alone, tile states ready)",
+           k_ms, elems * 4, kb)
     f_ms = time_cuda(lambda: tb.thundering_faithful(
-        plan.x0, plan.ctr, T, plan.h, states, block_t=bt,
-        sampler=bits_spec, out=out), reps=20)
-    report("thundering_faithful bits", f_ms, elems * 4)
+        plan.x0, plan.ctr, T, plan.h, lanes, block_t=bt, sampler=bits_spec,
+        out=out), reps=20)
+    m = _matvecs(S, plan.ctr, bt, n_tiles)
+    fb = bound(elems * 4, S * 8 + lanes.numel() * 4 + 64 * 512 * 16,
+               "faithful", (m * MATVEC_OPS[0], m * MATVEC_OPS[1]))
+    report("thundering_faithful bits", f_ms, elems * 4, fb)
     plain_f = time_cuda(lambda: tb.thundering_faithful_plain(
-        plan.x0, plan.ctr, T, plan.h, states, block_t=bt,
-        sampler=bits_spec), reps=3, warmup=1)
-    log(f"  thundering_faithful_plain bits: {plain_f:.4f} ms")
-    f_bound, f_by = bound(elems * 4, S * 8 + states.numel() * 4, "faithful")
+        plan.x0, plan.ctr, T, plan.h, lanes, block_t=bt,
+        sampler=bits_spec), reps=1, warmup=1)
+    log(f"  thundering_faithful_plain bits (host jump_batch included): "
+        f"{plain_f:.4f} ms")
     rows.append(dict(name="thundering_faithful", ms=f_ms, plain_ms=plain_f,
-                     bound_ms=f_bound, bound_by=f_by, library_ms=lib_ctr))
-    for r in rows:
-        log(f"  {r['name']}: bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']} ({r['bound_ms'] / r['ms'] * 100:.1f}% of "
-            f"the bound's speed)")
+                     bound_ms=fb[0], bound_by=fb[1], library_ms=lib_ctr))
     return rows
 
 
@@ -886,7 +1062,8 @@ def phase_apps_timing(device) -> list:
                 return (torch.clamp_min(st - k, 0.0) * disc).sum() / N
             lib_label = f"torch.randn of {N} f32"
         v_ms = time_cuda(vendor, reps=5)
-        log(f"  {name} kernel: {ms:.4f} ms = {N / (ms * 1e-3) / 1e9:.1f} G "
+        log(f"  {name} kernel: {ms:.4f} ms{_was(name)} = "
+            f"{N / (ms * 1e-3) / 1e9:.1f} G "
             f"(x, y) draws/s; bound {b_ms:.4f} ms by {b_by} "
             f"({b_ms / ms * 100:.1f}% of the bound's speed)")
         log(f"  {name} plain version at the same shape: {plain_ms:.2f} ms")
@@ -916,7 +1093,8 @@ def phase_apps_timing(device) -> list:
         moved = 2 * n * x.element_size()
         b_ms, b_by = bound(moved, n, "dropout_bf16"
                            if dtype == torch.bfloat16 else "dropout_f32")
-        log(f"  fused_dropout_2d {dtype}: {ms:.4f} ms = "
+        log(f"  fused_dropout_2d {dtype}: {ms:.4f} ms"
+            f"{_was(f'fused_dropout_2d {dtype}')} = "
             f"{moved / (ms * 1e-3) / 1e9:.1f} GB/s; bound {b_ms:.4f} ms by "
             f"{b_by} ({b_ms / ms * 100:.1f}% of the bound's speed); plain "
             f"{plain_ms:.2f} ms; torch F.dropout {lib_ms:.4f} ms")
@@ -1166,7 +1344,8 @@ def phase_inference_timing(device) -> list:
                     n * all_ops / DISPATCH_OPS_PER_S) * 1e3
         b_ms, b_by = max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
                                            else "bytes")
-        log(f"  gumbel_argmax (V, B) = ({V}, {B}): {ms:.4f} ms = "
+        log(f"  gumbel_argmax (V, B) = ({V}, {B}): {ms:.4f} ms"
+            f"{_was(f'gumbel_argmax B={B}')} = "
             f"{n / (ms * 1e-3) / 1e9:.1f} G elements/s, "
             f"{n * 4 / (ms * 1e-3) / 1e9:.1f} GB/s of logits; bound "
             f"{b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, operations "
@@ -1286,6 +1465,7 @@ def main() -> int:
         worst.update(run_phase("apps parity", phase_apps_parity, device))
         worst.update(run_phase("inference parity", phase_inference_parity,
                                device))
+        run_phase("digests", phase_digests, device)
         run_phase("golden", phase_golden, device)
         launches = run_phase("main path", phase_main_path, device)
         launches.update(run_phase("apps path", phase_apps, device))

@@ -195,15 +195,7 @@ def _faithful_states_at(plan: GenPlan, offsets: Sequence[int]) -> np.ndarray:
     """(K, 4, S) uint32 xorshift start states at non-decreasing offsets
     relative to ``plan.ctr``: host GF(2) jumps over the whole lane table,
     one batched jump per distinct offset."""
-    tbl = _lane_states(plan)
-    states = np.empty((len(offsets), 4, plan.num_streams), np.uint32)
-    at = 0
-    for i, off in enumerate(offsets):
-        if off != at:
-            tbl = xorshift.jump_batch(tbl, off - at)
-            at = off
-        states[i] = tbl.T
-    return states
+    return xorshift.states_at(_lane_states(plan), offsets)
 
 
 def _faithful_tile_states(plan: GenPlan, block_t: int, n_tiles: int
@@ -268,12 +260,11 @@ def _cuda_backend(plan: GenPlan, *, block_t: int,
                                   deco=plan.deco, sampler=spec,
                                   out_dtype=plan.out_dtype, out=out)
     if plan.mode == "faithful":
-        bt = _tb.tile_rows(block_t, T)
-        states = _faithful_tile_states(plan, bt, -(-T // bt))
         return _tb.thundering_faithful(
             plan.x0, plan.ctr, T, plan.h,
-            _tb.states_tensor(states, plan.device), block_t=bt,
-            sampler=spec, out_dtype=plan.out_dtype, out=out)
+            _tb.lane_states(plan.num_streams, plan.device),
+            block_t=_tb.tile_rows(block_t, T), sampler=spec,
+            out_dtype=plan.out_dtype, out=out)
     raise ValueError(f"unknown mode {plan.mode!r}")
 
 

@@ -6,7 +6,10 @@ steps apart so that no two overlap (Sec. 5.1.2).  xorshift128 is
 F2-linear: the 128-bit state advances by a fixed bit matrix ``M``, and a
 jump by N steps is a product with ``M**N``.  The matrices and jumps are
 host-side numpy and python-int code (the paper's "compile time",
-Sec. 4.2); ``step_xyzw`` is the per-row step on u32 limb tensors.
+Sec. 4.2); ``step_xyzw`` is the per-row step on u32 limb tensors, and
+``jump_tensor`` the plain torch form of a jump over a tensor of states
+(the reference's ``jump_traced``; the card runs it in
+``csrc/thundering_block.cu``).
 
 State layout: (x, y, z, w) four uint32 words; the output is the new ``w``.
 Bit k of the flattened 128-bit state is bit (k % 32) of word (k // 32).
@@ -14,9 +17,10 @@ Bit k of the flattened 128-bit state is bit (k % 32) of word (k // 32).
 from __future__ import annotations
 
 import functools
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.u64 import M32
 
@@ -142,6 +146,23 @@ def _packed_pow2_matrices(max_log2: int = 64) -> np.ndarray:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _pow2_nibble_tables(max_log2: int = 64) -> np.ndarray:
+    """M**(2**k) for k in [0, max_log2) as nibble tables, shape
+    (max_log2, 32, 16, 4) uint32: entry [k, p, v] is M**(2**k) applied to
+    the state whose only set bits are v << 4p, the XOR of columns 4p + b for
+    the set bits b of v.  A matvec is then 32 lookups and their XOR (the
+    card's jump kernels read this form)."""
+    cols = np.array([[_int_to_state(c) for c in matrix_pow2(k)]
+                     for k in range(max_log2)], np.uint32)
+    cols = cols.reshape(max_log2, 32, 4, STATE_WORDS)          # [k, p, b, w]
+    v = np.arange(16)
+    out = np.zeros((max_log2, 32, 16, STATE_WORDS), np.uint32)
+    for b in range(4):
+        out[:, :, (v >> b) & 1 == 1, :] ^= cols[:, :, b, None, :]
+    return out
+
+
 _POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
 
 
@@ -171,4 +192,55 @@ def jump_batch(states: np.ndarray, n: int) -> np.ndarray:
             states = _matvec_batch(mats[k], states)
         n >>= 1
         k += 1
+    return states
+
+
+def states_at(states: np.ndarray, offsets: Sequence[int]) -> np.ndarray:
+    """(K, 4, S) uint32: an (S, 4) state table advanced by each of the
+    non-decreasing ``offsets``, one ``jump_batch`` per distinct offset."""
+    tbl = np.asarray(states, np.uint32)
+    out = np.empty((len(offsets), STATE_WORDS, tbl.shape[0]), np.uint32)
+    at = 0
+    for i, off in enumerate(offsets):
+        if off != at:
+            tbl = jump_batch(tbl, off - at)
+            at = off
+        out[i] = tbl.T
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _pow2_matrix_limbs() -> torch.Tensor:
+    return torch.from_numpy(_packed_pow2_matrices(64).astype(np.int64))
+
+
+def _matvec_limbs(mat: torch.Tensor, states: torch.Tensor) -> torch.Tensor:
+    """One packed GF(2) matvec of (..., 4) limb states: output bit r is the
+    parity of row_r & state, the parity of the xor of its four words."""
+    acc = mat & states[..., None, :]                              # (..., 128, 4)
+    x = acc[..., 0] ^ acc[..., 1] ^ acc[..., 2] ^ acc[..., 3]      # (..., 128)
+    for shift in (16, 8, 4, 2, 1):
+        x = x ^ (x >> shift)
+    bits = (x & 1).reshape(x.shape[:-1] + (STATE_WORDS, 32))
+    return (bits << torch.arange(32, device=bits.device)).sum(-1)
+
+
+def jump_tensor(states: torch.Tensor, n_hi, n_lo) -> torch.Tensor:
+    """Advance (..., 4) xorshift128 states, u32 limbs in int64, by the
+    64-bit count (n_hi, n_lo): ints, or limb tensors that broadcast
+    against ``states.shape[:-1]`` (one count per state).
+
+    The semantics of the reference's ``jump_traced``: 64 conditional
+    packed matvecs by M**(2**k), k = 0..63, each applied where bit k of the
+    count is set.  Plain torch on any device; used to check the card's jump.
+    """
+    mats = _pow2_matrix_limbs().to(states.device)
+    n_hi = torch.as_tensor(n_hi, dtype=torch.int64, device=states.device)
+    n_lo = torch.as_tensor(n_lo, dtype=torch.int64, device=states.device)
+    for k in range(64):
+        bit = ((n_lo >> k) if k < 32 else (n_hi >> (k - 32))) & 1
+        if not bool(bit.any()):
+            continue
+        jumped = _matvec_limbs(mats[k], states)
+        states = torch.where((bit == 1)[..., None], jumped, states)
     return states

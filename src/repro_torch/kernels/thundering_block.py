@@ -50,6 +50,9 @@ def _lib() -> ctypes.CDLL:
                                            ptr, cint, cint,
                                            ctypes.POINTER(_Stage), ptr]
         lib.tb_faithful_launch.restype = cint
+        lib.tb_tile_states_launch.argtypes = [ptr, ptr, ptr, ptr, cint,
+                                              u64_t, i64, cint, ptr]
+        lib.tb_tile_states_launch.restype = cint
         lib.tb_error_string.argtypes = [cint]
         lib.tb_error_string.restype = ctypes.c_char_p
         lib._tb_typed = True
@@ -78,6 +81,14 @@ def _stage(spec, out_dtype: str, device: torch.device):
 def u32_device(x: torch.Tensor) -> torch.Tensor:
     """u32 limb tensor -> contiguous int32 tensor of the same bits."""
     return x.to(torch.int32).contiguous()
+
+
+def limb_words(x: torch.Tensor) -> torch.Tensor:
+    """u32 limb tensor as the contiguous int64 words kernels A and B read;
+    a plan's own limbs pass as they are, with no conversion launch."""
+    if x.dtype == torch.int64 and x.is_contiguous():
+        return x
+    return u64.limbs(x).contiguous()
 
 
 def check_h(h: U64Pair) -> int:
@@ -161,7 +172,7 @@ def thundering_ctr(x0: int, ctr: int, rows: int, h: U64Pair, *,
         raise ValueError(f"thundering_ctr runs on cpu or cuda, not {device}")
     dtype = sampler_mod.result_dtype(sampler, out_dtype)
     out = output_tensor(out, rows, S, dtype, device)
-    h_hi, h_lo = u32_device(h[0]), u32_device(h[1])
+    h_hi, h_lo = limb_words(h[0]), limb_words(h[1])
     rec, _ = _stage(sampler, out_dtype, device)
     lib = _lib()
     with torch.cuda.device(device):
@@ -189,18 +200,35 @@ def tile_rows(block_t: int, rows: int) -> int:
     return max(2, bt - bt % 2)
 
 
+def _host_lanes(lanes: torch.Tensor) -> np.ndarray:
+    """(4, S) 32-bit lane states (int64 limbs or int32 bit patterns, any
+    device) -> (S, 4) uint32 on the host."""
+    return u64.limbs(lanes.cpu()).numpy().astype(np.uint32).T.copy()
+
+
+def _check_lanes(lanes: torch.Tensor, S: int, device: torch.device) -> None:
+    if tuple(lanes.shape) != (4, S):
+        raise ValueError(f"lanes must be (4, {S}), got {tuple(lanes.shape)}")
+    if lanes.device != device:
+        raise ValueError("lanes and h lie on different devices")
+
+
 def thundering_faithful_plain(x0: int, ctr: int, rows: int, h: U64Pair,
-                              states: torch.Tensor, *, block_t: int,
+                              lanes: torch.Tensor, *, block_t: int,
                               sampler=("bits", None),
                               out_dtype: str = "float32") -> torch.Tensor:
     """Plain torch version of kernel B: each row tile restarts the
-    xorshift128 chain from its own start state in ``states``."""
+    xorshift128 chain from its own start state, jumped on the host with
+    ``xorshift.jump_batch`` (independent of the card's jump)."""
     if h[0].is_cuda:
         thundering_faithful_plain.cuda_runs += 1
+    n_tiles = -(-rows // block_t)
+    tbl = xorshift.jump_batch(_host_lanes(lanes), ctr & u64.M64)
+    states = states_tensor(xorshift.states_at(
+        tbl, [i * block_t for i in range(n_tiles)]), "cpu").to(h[0].device)
     roots = lcg.root_states_vector(x0, ctr, rows, device=h[0].device)
     perm = ref.leaf_outputs(roots, h)
-    st = u64.limbs(states)
-    x, y, z, w = (st[:, i, :] for i in range(4))
+    x, y, z, w = (states[:, i, :] for i in range(4))
     outs = []
     for _ in range(block_t):
         x, y, z, w = xorshift.step_xyzw(x, y, z, w)
@@ -212,43 +240,75 @@ def thundering_faithful_plain(x0: int, ctr: int, rows: int, h: U64Pair,
 thundering_faithful_plain.cuda_runs = 0
 
 
+def faithful_tile_states(lanes: torch.Tensor, ctr: int, block_t: int,
+                         n_tiles: int) -> torch.Tensor:
+    """(n_tiles, 4, S) start states of kernel B's row tiles: the (4, S)
+    lane table ``lanes`` (substreams at their start) advanced by
+    ``ctr + i * block_t`` steps for tile i.  On a card the GF(2) jump kernels
+    of ``csrc/thundering_block.cu`` write them; on the CPU the plain torch
+    jump ``xorshift.jump_tensor`` does."""
+    S = int(lanes.shape[1])
+    _check_lanes(lanes, S, lanes.device)
+    if lanes.device.type == "cpu":
+        n_hi, n_lo = (torch.tensor(v, dtype=torch.int64)[:, None]
+                      for v in zip(*(u64.split64(ctr + i * block_t)
+                                     for i in range(n_tiles))))
+        st = xorshift.jump_tensor(u64.limbs(lanes).T[None], n_hi, n_lo)
+        return st.transpose(1, 2).contiguous()
+    return _tile_states_cuda(_lib(), lanes, ctr, block_t, n_tiles)
+
+
+def _tile_states_cuda(lib: ctypes.CDLL, lanes: torch.Tensor, ctr: int,
+                      block_t: int, n_tiles: int) -> torch.Tensor:
+    device = lanes.device
+    S = int(lanes.shape[1])
+    states = torch.empty((n_tiles, 4, S), dtype=torch.int32, device=device)
+    scratch = torch.empty((4, S), dtype=torch.int32, device=device) \
+        if ctr & u64.M64 else states
+    with torch.cuda.device(device):
+        code = lib.tb_tile_states_launch(
+            states.data_ptr(), lanes.data_ptr(), scratch.data_ptr(),
+            pow2_tables(device).data_ptr(), S, ctr & u64.M64, block_t,
+            n_tiles, torch.cuda.current_stream(device).cuda_stream)
+    _check(lib, code, "thundering_faithful tile states")
+    return states
+
+
 def thundering_faithful(x0: int, ctr: int, rows: int, h: U64Pair,
-                        states: torch.Tensor, *, block_t: int,
+                        lanes: torch.Tensor, *, block_t: int,
                         sampler=("bits", None), out_dtype: str = "float32",
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(rows, S) faithful-mode block: XSH_RR(root + h_s) ^ w_s(t), w the
     xorshift128 substream of stream s.
 
-    ``states``: (n_tiles, 4, S) 32-bit tensor, the substream state of every
-    stream at the first row of each ``block_t``-row tile (``block_t`` even,
-    ``n_tiles = ceil(rows / block_t)``).
+    ``lanes``: the (4, S) 32-bit lane table at substream start
+    (``lane_states``); the kernel's row tiles of ``block_t`` rows (even)
+    start from it advanced by ``ctr + i * block_t`` steps, jumped on the
+    card by the launch itself (``faithful_tile_states``).
     """
     S = check_h(h)
     _check_stage_rows(sampler, rows)
     if block_t < 2 or block_t % 2:
         raise ValueError(f"block_t must be even and >= 2, got {block_t}")
-    n_tiles = -(-rows // block_t)
-    if tuple(states.shape) != (n_tiles, 4, S):
-        raise ValueError(f"states must be ({n_tiles}, 4, {S}), got "
-                         f"{tuple(states.shape)}")
     device = h[0].device
-    if states.device != device:
-        raise ValueError("states and h lie on different devices")
+    _check_lanes(lanes, S, device)
     if device.type == "cpu":
         return finish_plain(thundering_faithful_plain(
-            x0, ctr, rows, h, states, block_t=block_t, sampler=sampler,
+            x0, ctr, rows, h, lanes, block_t=block_t, sampler=sampler,
             out_dtype=out_dtype), out)
     if device.type != "cuda":
         raise ValueError(f"thundering_faithful runs on cpu or cuda, "
                          f"not {device}")
-    if states.dtype not in (torch.int32, torch.uint32):
-        raise ValueError(f"states must be 32-bit, got {states.dtype}")
+    if lanes.dtype not in (torch.int32, torch.uint32):
+        raise ValueError(f"lanes must be 32-bit, got {lanes.dtype}")
     dtype = sampler_mod.result_dtype(sampler, out_dtype)
     out = output_tensor(out, rows, S, dtype, device)
-    states = states.contiguous()
-    h_hi, h_lo = u32_device(h[0]), u32_device(h[1])
+    n_tiles = -(-rows // block_t)
+    h_hi, h_lo = limb_words(h[0]), limb_words(h[1])
     rec, _ = _stage(sampler, out_dtype, device)
     lib = _lib()
+    states = _tile_states_cuda(lib, lanes.contiguous(), ctr, block_t,
+                               n_tiles)
     with torch.cuda.device(device):
         code = lib.tb_faithful_launch(
             out.data_ptr(), rows, S, lcg.advance(x0, ctr), h_hi.data_ptr(),
@@ -263,14 +323,30 @@ thundering_faithful.launches = 0
 
 
 def states_tensor(states: np.ndarray, device) -> torch.Tensor:
-    """Host (K, 4, S) uint32 start states -> 32-bit tensor on ``device``
-    (int64 limbs on the CPU, the int32 bit pattern on a card)."""
+    """Host (..., S) uint32 states -> 32-bit tensor on ``device`` (int64
+    limbs on the CPU, the int32 bit pattern on a card)."""
     t = torch.from_numpy(np.ascontiguousarray(states, np.uint32)
                          .view(np.int32))
     device = torch.device(device)
     if device.type == "cpu":
         return u64.limbs(t)
     return t.to(device, non_blocking=False)
+
+
+@functools.lru_cache(maxsize=16)
+def lane_states(num_streams: int, device) -> torch.Tensor:
+    """The (4, S) lane table of substreams 0..S-1 at their start
+    (``xorshift.lane_table``, built once on the host per S) on ``device``,
+    uploaded once and kept."""
+    return states_tensor(xorshift.lane_table(num_streams).T.copy(), device)
+
+
+@functools.lru_cache(maxsize=8)
+def pow2_tables(device) -> torch.Tensor:
+    """The GF(2) matrices M**(2**k), k < 64, as (64, 32, 16, 4) nibble
+    tables (``xorshift._pow2_nibble_tables``) on a card: 512 KiB, uploaded
+    once."""
+    return states_tensor(xorshift._pow2_nibble_tables(64), device)
 
 
 def reset_counts() -> None:

@@ -10,8 +10,10 @@ import pytest
 import torch
 
 from repro_torch import inference
-from repro_torch.core import engine, golden, sampler, stream, u64
+from repro_torch.core import engine, golden, sampler, stream, u64, \
+    xorshift
 from repro_torch.inference.kernels import gumbel_argmax as ga
+from repro_torch.kernels import digests
 from repro_torch.kernels import fused_dropout as fd
 from repro_torch.kernels import mc, ops
 from repro_torch.kernels import thundering_block as tb
@@ -110,6 +112,106 @@ def test_out_of_place_checks_raise(cuda):
     with pytest.raises(ValueError, match="out must be"):
         engine.generate(plan, out=torch.empty((8, 8), dtype=torch.float32,
                                               device=cuda))
+
+
+def test_block_kernels_reproduce_recorded_digests(cuda):
+    """Kernels A and B write, byte for byte, what the recorded build wrote
+    (every stage and dtype, both decorrelators, faithful mode)."""
+    got = digests.compute(cuda)
+    assert set(got) == set(digests.RECORDED)
+    assert digests.mismatches(got) == []
+
+
+# (T, S, offset): one column (the stream API's S = 1), S that no 16-byte
+# run divides, odd row counts, and a row wider than one block of runs.
+EDGE_SHAPES = [(33, 1, 7), (8, 1, 2 ** 32 + 12345), (7, 3, 12345),
+               (9, 5, 2 ** 32 + 12345), (41, 130, 12345),
+               (5, 2 ** 14 + 1, 2 ** 32)]
+EDGE_CASES = [(spec, dtype) for spec, dtypes in digests.STAGES
+              for dtype in dtypes]
+
+
+def _block(mode, deco, plan, T, spec, dtype, plain, out=None):
+    kw = dict(sampler=sampler.parse(spec), out_dtype=dtype)
+    if mode == "ctr":
+        fn = tb.thundering_ctr_plain if plain else tb.thundering_ctr
+        kw["deco"] = deco
+        args = (plan.x0, plan.ctr, T, plan.h)
+    else:
+        fn = tb.thundering_faithful_plain if plain else tb.thundering_faithful
+        kw["block_t"] = tb.tile_rows(16, T)
+        args = (plan.x0, plan.ctr, T, plan.h,
+                tb.lane_states(plan.num_streams, plan.device))
+    if out is not None:
+        kw["out"] = out
+    return fn(*args, **kw)
+
+
+@pytest.mark.parametrize("spec,dtype", EDGE_CASES)
+@pytest.mark.parametrize("mode,deco", [("ctr", "splitmix64"),
+                                       ("ctr", "fmix32"),
+                                       ("faithful", "splitmix64")])
+def test_block_kernels_match_plain_at_edges(cuda, mode, deco, spec, dtype):
+    kind = sampler.parse(spec)[0]
+    for T, S, off in EDGE_SHAPES:
+        if kind == "normal" and T % 2:
+            T += 1
+        plan = engine.make_plan(seed=11, num_streams=S, num_steps=T,
+                                offset=off, device=cuda)
+        want = _block(mode, deco, plan, T, spec, dtype, plain=True)
+        got = _block(mode, deco, plan, T, spec, dtype, plain=False)
+        assert got.dtype == want.dtype, (T, S, off)
+        assert _same(got, want, kind), (T, S, off)
+        # an out= view one element past a 16-byte line
+        buf = torch.empty(T * S + 1, dtype=want.dtype, device=cuda)
+        view = buf[1:].view(T, S)
+        res = _block(mode, deco, plan, T, spec, dtype, plain=False, out=view)
+        assert res.data_ptr() == view.data_ptr()
+        assert torch.equal(view.view(torch.uint8), got.view(torch.uint8)), \
+            (T, S, off)
+
+
+@pytest.mark.parametrize("ctr", [0, 12345, 2 ** 32 + 12345, 2 ** 63 + 1])
+def test_device_tile_states_match_host_jump(cuda, ctr):
+    S, T, bt = 1000, 1000, 64
+    plan = engine.make_plan(seed=1, num_streams=S, num_steps=T, offset=ctr,
+                            mode="faithful", device=cuda)
+    n_tiles = -(-T // bt)
+    got = tb.faithful_tile_states(tb.lane_states(S, cuda), ctr, bt, n_tiles)
+    want = engine._faithful_tile_states(plan, bt, n_tiles)
+    assert np.array_equal(u64.limbs(got.cpu()).numpy().astype(np.uint32),
+                          want)
+
+
+def test_faithful_card_path_makes_no_host_jump(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("host GF(2) jump on the card path")
+    plan = engine.make_plan(seed=2, num_streams=300, num_steps=100,
+                            offset=2 ** 32 + 12345, mode="faithful",
+                            device=cuda)
+    tb.lane_states(300, cuda)                  # the one-time upload
+    want = engine.generate(plan, backend="torch")
+    monkeypatch.setattr(engine, "_faithful_tile_states", refuse)
+    monkeypatch.setattr(engine, "_faithful_states_at", refuse)
+    monkeypatch.setattr(xorshift, "jump_batch", refuse)
+    tb.reset_counts()
+    got = engine.generate(plan)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert tb.thundering_faithful.launches == 1
+    assert tb.thundering_faithful_plain.cuda_runs == 0
+
+
+@pytest.mark.parametrize("mode", ["ctr", "faithful"])
+def test_producer_ring_on_card(cuda, mode):
+    svc = BlockService(seed=7, device=cuda)
+    svc.open("r", num_streams=2 ** 10, mode=mode)
+    with svc.producer("r", 64, depth=2, fuse=4, count=9, donate=True,
+                      check_ring=True) as prod:
+        got = [(lease.lo, blk.clone()) for lease, blk in prod]
+    ref = BlockService(seed=7, device="cpu")
+    ref.open("r", num_streams=2 ** 10, mode=mode)
+    for lo, blk in got:
+        assert torch.equal(blk.cpu(), ref.regenerate("r", lo, 64))
 
 
 @pytest.mark.parametrize("T,S,bt,off", [(37, 130, 8, 0),
