@@ -70,9 +70,10 @@ BLOCK_OPS_PER_ELEMENT = {"splitmix64": (177 / 8, 293 / 8),
                          "faithful": (114 / 8, 177 / 8)}
 MATVEC_OPS = (199.0, 239.0)
 
-# Earlier times at the same shapes, logged beside this run's: chip_smoke
-# PR 13 run 1 (kernel A bits, kernels B-F) and PR 11 (kernel A's uniform
-# and normal stages), NVIDIA H100 80GB HBM3, 700.00 W.
+# Earlier times at the same shapes, logged beside this run's (chip_smoke
+# runs on NVIDIA H100 80GB HBM3, 700.00 W, as PERF.md's kernel table gives
+# them): kernel C's from the run before its redesign, the others' from the
+# run before the redesign of kernels A and B.
 EARLIER_MS = {"thundering_ctr splitmix64 bits float32": 0.2525,
               "thundering_ctr fmix32 bits float32": 0.2065,
               "thundering_ctr splitmix64 uniform float32": 0.2872,
@@ -81,8 +82,8 @@ EARLIER_MS = {"thundering_ctr splitmix64 bits float32": 0.2525,
               "thundering_faithful bits (kernel alone, tile states ready)":
                   0.1696,
               "pi_partials": 1.0349, "option_partials": 1.9881,
-              "fused_dropout_2d torch.bfloat16": 0.2428,
-              "fused_dropout_2d torch.float32": 0.2969,
+              "fused_dropout_2d torch.bfloat16": 0.2283,
+              "fused_dropout_2d torch.float32": 0.3045,
               "gumbel_argmax B=64": 0.1000, "gumbel_argmax B=256": 0.3569}
 
 # The applications' kernels, counted from ``cuobjdump -sass`` of their
@@ -94,16 +95,23 @@ EARLIER_MS = {"thundering_ctr splitmix64 bits float32": 0.2525,
 #   option: the row loop 0710-1730 less cosf's Payne-Hanek reduction
 #     (0e60-1270, |2 pi u| < 105615 never takes it) and sqrtf's slow call
 #     (13f0-1420): 70 INT32 of 189
-#   dropout bf16: one 16-byte run of 8 elements, 05f0-0700, 0710-1d70,
-#     3700-37f0: 233 INT32 of 393                                      /8
-#   dropout f32: one run of 4, 05e0-06f0, 0700-1160, 2980-2a70: 121 INT32
-#     of 201                                                           /4
+#   dropout bf16: the fewest INT32 instructions a build of this function
+#     was seen to need, the "mulhi" form of tools/dropout_variants.py
+#     (splitmix64's shifts as IMAD on the FMA pipe), its loop over whole
+#     16-byte runs of 8 elements, 06a0-1990: 147 INT32 (149 IMAD) of 304
+#                                                                      /8
+#     Its INT32, IMAD and issue times all fall below the bytes', so the
+#     bound is the bytes'.  The kept build (fused_dropout_kernel<
+#     __nv_bfloat16>, 0670-1880: 180 INT32 of 290) runs faster than that
+#     form and still misses the byte bound by its INT32 pipe.
+#   dropout f32: the kept build's loop over whole runs of 4, 0760-1110:
+#     93 INT32 of 156                                                  /4
 # A warp scheduler issues one instruction per clock: 132 SMs x 4 x 32 lanes
 # x 1.98 GHz.  The operation bound is the larger of the INT32 pipe's time
 # and the issue time.
 APP_OPS_PER_ELEMENT = {"pi": (50.0, 87.0), "option": (70.0, 189.0),
-                       "dropout_bf16": (233 / 8, 393 / 8),
-                       "dropout_f32": (121 / 4, 201 / 4)}
+                       "dropout_bf16": (147 / 8, 304 / 8),
+                       "dropout_f32": (93 / 4, 156 / 4)}
 DISPATCH_OPS_PER_S = 132 * 4 * 32 * 1.98e9
 
 # The applications' main path (paper Sec. 6): the README's estimate_pi
@@ -242,6 +250,20 @@ def time_cuda(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean ms per call of ``fn`` on the host clock, ending in a
+    synchronize: what a caller waits, host work included."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -342,8 +364,10 @@ def phase_parity(device) -> dict:
 def phase_digests(device) -> None:
     """Kernels A and B reproduce the recorded bytes of every stage x dtype,
     both decorrelators and faithful mode (what journal replay needs; the
-    float stages' ULP check above cannot show it); and kernel B's device
-    GF(2) tile states equal the host jump at four counters."""
+    float stages' ULP check above cannot show it); kernel C those of every
+    dtype x rate x counter x input, special values and NaNs included; and
+    kernel B's device GF(2) tile states equal the host jump at four
+    counters."""
     import numpy as np
     from repro_torch.core import engine, u64
     from repro_torch.kernels import digests
@@ -354,6 +378,13 @@ def phase_digests(device) -> None:
     require(set(got) == set(digests.RECORDED) and not bad,
             f"kernel bytes differ from the recorded digests: {bad[:5]}")
     log(f"digests: {len(got)} outputs equal the recorded bytes in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    got = digests.compute_dropout(device)
+    bad = digests.mismatches(got)
+    require(set(got) == set(digests.DROPOUT_RECORDED) and not bad,
+            f"kernel C bytes differ from the recorded digests: {bad[:5]}")
+    log(f"digests: {len(got)} kernel C outputs equal the recorded bytes in "
         f"{time.perf_counter() - t0:.1f} s")
     S, T, bt = 1000, 1000, 64
     for ctr in (0, 12345, HIGH_OFFSET, 2 ** 63 + 1):
@@ -609,7 +640,7 @@ def phase_delivery(device) -> None:
 
 
 def _was(key: str) -> str:
-    return f" (PR 13: {EARLIER_MS[key]} ms)" if key in EARLIER_MS else ""
+    return f" (earlier: {EARLIER_MS[key]} ms)" if key in EARLIER_MS else ""
 
 
 def _matvecs(S: int, ctr: int, bt: int, n_tiles: int) -> int:
@@ -1090,6 +1121,8 @@ def phase_apps_timing(device) -> list:
             x, s.h, s.x0, s.ctr, DROPOUT_RATE), reps=1, warmup=1)
         lib_ms = time_cuda(lambda: F.dropout(x, DROPOUT_RATE, training=True),
                            reps=20)
+        e_ms = host_ms(lambda: ops.fused_dropout(x, s, DROPOUT_RATE),
+                        reps=20)
         moved = 2 * n * x.element_size()
         b_ms, b_by = bound(moved, n, "dropout_bf16"
                            if dtype == torch.bfloat16 else "dropout_f32")
@@ -1098,6 +1131,8 @@ def phase_apps_timing(device) -> list:
             f"{moved / (ms * 1e-3) / 1e9:.1f} GB/s; bound {b_ms:.4f} ms by "
             f"{b_by} ({b_ms / ms * 100:.1f}% of the bound's speed); plain "
             f"{plain_ms:.2f} ms; torch F.dropout {lib_ms:.4f} ms")
+        log(f"  ops.fused_dropout {dtype} end to end (host clock, the "
+            f"wrapper's host work included): {e_ms:.4f} ms")
         per_dtype[dtype] = dict(name="fused_dropout_2d", ms=ms,
                                 plain_ms=plain_ms, bound_ms=b_ms,
                                 bound_by=b_by, library_ms=lib_ms)

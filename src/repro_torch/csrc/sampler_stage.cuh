@@ -154,6 +154,26 @@ __device__ __forceinline__ u32 tb_deco_pre(u64 leaf, u64 row) {
   }
 }
 
+// perm ^ tb_deco_pre<0>(0, z): splitmix64's mix of z folded to 32 bits and
+// xored into a permuted word, worked in 32-bit halves (hi, lo).  Each
+// xor-shift is a funnel shift of the halves, and the last one is fused
+// with the fold: (z ^ z >> 31) folds to hi ^ (hi >> 31) ^ lo ^
+// funnelshift_r(lo, hi, 31), two shifts and two three-input xors with perm.
+__device__ __forceinline__ u32 tb_mix64_fold_xor(u64 z, u32 perm) {
+  u32 lo = (u32)z, hi = (u32)(z >> 32);
+  lo ^= __funnelshift_r(lo, hi, 30);
+  hi ^= hi >> 30;
+  z = (((u64)hi << 32) | lo) * TB_MIX1;
+  lo = (u32)z;
+  hi = (u32)(z >> 32);
+  lo ^= __funnelshift_r(lo, hi, 27);
+  hi ^= hi >> 27;
+  z = (((u64)hi << 32) | lo) * TB_MIX2;
+  lo = (u32)z;
+  hi = (u32)(z >> 32);
+  return perm ^ hi ^ (hi >> 31) ^ lo ^ __funnelshift_r(lo, hi, 31);
+}
+
 // The row term of counter `counter`, stepped one row at a time.
 template <int DECO>
 struct TbRowTerm {

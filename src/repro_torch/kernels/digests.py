@@ -1,4 +1,4 @@
-"""Recorded sha256 digests of the block generators' output bytes.
+"""Recorded sha256 digests of the kernels' output bytes.
 
 Journal replay (``service.audit``, ``inference.scheduler``) regenerates
 blocks long after they were first drawn, so kernels A and B must keep
@@ -9,8 +9,18 @@ digests of every sampler stage and dtype, both decorrelators and faithful
 mode, at two shapes, as the card's kernels wrote them (NVIDIA H100 80GB
 HBM3); ``compute`` recomputes them through ``engine.generate``.
 
+``DROPOUT_RECORDED`` does the same for kernel C (fused dropout, through
+``fused_dropout_2d``): every dtype x rate x counter x input, the inputs
+being seeded normals at four shapes (one of them a view that starts one
+element past a 16-byte line) and one input per dtype of special values
+(every bit pattern of a 16-bit dtype; for float32, random bit patterns
+with signed zeros, infinities, the extreme subnormals and the largest
+finite value), once without and once with NaNs.
+
 On a CPU the plain versions run instead: their integer and threshold
-stages give the recorded bytes, their log / trig stages differ by ULPs.
+stages give the recorded bytes, their log / trig stages differ by ULPs;
+the plain dropout gives the recorded bytes of every input without NaN
+(torch-CPU writes another NaN pattern than the card).
 
     python -m repro_torch.kernels.digests [--out FILE]   # on a card
 """
@@ -21,9 +31,11 @@ import hashlib
 import json
 from typing import Dict, Iterator, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core import engine
+from repro_torch.core import engine, stream
+from repro_torch.kernels import fused_dropout as fd
 
 SEED = 42
 HIGH_OFFSET = 2 ** 32 + 12345
@@ -93,9 +105,95 @@ def compute(device=None, shapes=SHAPES, exact_only: bool = False
     return out
 
 
+#: kernel C's cases: dtype x rate x counter x input
+DROPOUT_DTYPES = ("float32", "bfloat16", "float16")
+DROPOUT_RATES = (0.1, 0.5, 1e-9)
+DROPOUT_COUNTERS = (0, HIGH_OFFSET)
+#: input name -> shape; "64x1001+1" starts one element past a 16-byte line
+DROPOUT_INPUTS = {"3x1001": (3, 1001), "64x1001+1": (64, 1001),
+                  "8x128": (8, 128), "4096x3072": (4096, 3072),
+                  "special": (256, 256), "special+nan": (256, 256)}
+# (sign-free exponent mask, mantissa mask, bit pattern of 1.0) per dtype
+_FLOAT_BITS = {"float32": (0x7F800000, 0x007FFFFF, 0x3F800000),
+               "bfloat16": (0x7F80, 0x007F, 0x3F80),
+               "float16": (0x7C00, 0x03FF, 0x3C00)}
+
+
+def dropout_key(dtype: str, name: str, rate: float, ctr: int) -> str:
+    return f"fused_dropout {dtype} {name} rate={rate!r} ctr={ctr}"
+
+
+def _special_bits(dtype: str, with_nan: bool) -> np.ndarray:
+    """65536 bit patterns: each pattern of a 16-bit dtype once in seeded
+    order; for float32 random patterns with +-0, +-inf, the smallest and
+    largest subnormals and the largest finite value 16 times each.  NaN
+    patterns become 1.0 unless ``with_nan``."""
+    rng = np.random.default_rng(SEED + 1)
+    exp_mask, man_mask, one = _FLOAT_BITS[dtype]
+    if dtype == "float32":
+        bits = rng.integers(0, 2 ** 32, 2 ** 16, dtype=np.uint64)
+        specials = np.array([0x0, 0x7F800000, 0x1, 0x007FFFFF, 0x7F7FFFFF],
+                            np.uint64)
+        specials = np.concatenate([specials, specials | 0x80000000])
+        where = rng.permutation(2 ** 16)[:16 * specials.size]
+        bits[where] = np.repeat(specials, 16)
+    else:
+        bits = rng.permutation(2 ** 16).astype(np.uint64)
+    nan = ((bits & exp_mask) == exp_mask) & ((bits & man_mask) != 0)
+    if not with_nan:
+        bits[nan] = one
+    return bits
+
+
+def dropout_input(dtype: str, name: str, device=None) -> torch.Tensor:
+    """Input ``name`` of kernel C's cases in ``dtype`` on ``device``,
+    made from a numpy seed (the same values on every device)."""
+    shape = DROPOUT_INPUTS[name]
+    t_dtype = getattr(torch, dtype)
+    if name.startswith("special"):
+        bits = _special_bits(dtype, name.endswith("nan"))
+        if dtype == "float32":
+            host = torch.from_numpy(bits.astype(np.uint32).view(np.int32))
+        else:
+            host = torch.from_numpy(bits.astype(np.uint16).view(np.int16))
+        host = host.view(t_dtype).reshape(shape)
+    else:
+        rng = np.random.default_rng(SEED + sum(shape))
+        host = torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32)).to(t_dtype)
+    device = engine.resolve_device(device)
+    if name.endswith("+1"):
+        flat = torch.empty(host.numel() + 1, dtype=t_dtype, device=device)
+        flat[1:].copy_(host.reshape(-1))
+        return flat[1:].view(shape)
+    return host.to(device)
+
+
+def dropout_cases(names=tuple(DROPOUT_INPUTS)) -> Iterator[Tuple[str, tuple]]:
+    """(key, (dtype, input name, rate, counter)) of kernel C's cases."""
+    for dtype in DROPOUT_DTYPES:
+        for name in names:
+            for ctr in DROPOUT_COUNTERS:
+                for rate in DROPOUT_RATES:
+                    yield (dropout_key(dtype, name, rate, ctr),
+                           (dtype, name, rate, ctr))
+
+
+def compute_dropout(device=None) -> Dict[str, str]:
+    """{case key: digest} of ``fused_dropout_2d`` on ``device``."""
+    out, x, made = {}, None, None
+    for key, (dtype, name, rate, ctr) in dropout_cases():
+        if made != (dtype, name):
+            x, made = dropout_input(dtype, name, device), (dtype, name)
+        s = stream.advance(stream.new_stream(SEED, 0, device=x.device), ctr)
+        out[key] = digest(fd.fused_dropout_2d(x, s.h, s.x0, s.ctr, rate))
+    return out
+
+
 def mismatches(got: Dict[str, str]) -> list:
     """Keys of ``got`` whose digest differs from the recorded one."""
-    return [k for k, v in got.items() if RECORDED.get(k) != v]
+    recorded = {**RECORDED, **DROPOUT_RECORDED}
+    return [k for k, v in got.items() if recorded.get(k) != v]
 
 
 RECORDED: Dict[str, str] = {
@@ -366,11 +464,231 @@ RECORDED: Dict[str, str] = {
 }
 
 
+DROPOUT_RECORDED: Dict[str, str] = {
+    "fused_dropout bfloat16 3x1001 rate=0.1 ctr=0":
+        "fcf89ae554211b9042372007730027ef0502c06c6b13083ec60e6a265bf8f0cf",
+    "fused_dropout bfloat16 3x1001 rate=0.1 ctr=4294979641":
+        "f0e9b9bf4f260cd3311e5a2ef124593c839904e2ff7b296cba42d32d93440c69",
+    "fused_dropout bfloat16 3x1001 rate=0.5 ctr=0":
+        "c59a6ddfc948b49d428e71fad73c91b920fe810d3c5866717cd4d03a9684983d",
+    "fused_dropout bfloat16 3x1001 rate=0.5 ctr=4294979641":
+        "c8a47840833ba9ff3d5550c4492a959c5ed90405de2ea23f807b2c4d53f43b4b",
+    "fused_dropout bfloat16 3x1001 rate=1e-09 ctr=0":
+        "66e72db9c976b391ff63ee283be6625994ce031b3cc3ae7875dd65abe21e2385",
+    "fused_dropout bfloat16 3x1001 rate=1e-09 ctr=4294979641":
+        "66e72db9c976b391ff63ee283be6625994ce031b3cc3ae7875dd65abe21e2385",
+    "fused_dropout bfloat16 4096x3072 rate=0.1 ctr=0":
+        "818e910deed73804cd3a78a03056986b5d34fd3c42fd83707160ea5fc743da63",
+    "fused_dropout bfloat16 4096x3072 rate=0.1 ctr=4294979641":
+        "9ae16a96dd62a7da7f66c5c096fc5b28f5ee6c978a86cdb9b255124b5fb4c73d",
+    "fused_dropout bfloat16 4096x3072 rate=0.5 ctr=0":
+        "ff25cd923ca8c3a815c8ee7fb60c63214e3f650131baea4f728f734da0db3bc2",
+    "fused_dropout bfloat16 4096x3072 rate=0.5 ctr=4294979641":
+        "69a485f57a03b962c24eda78ef250768b33e9443e2f83472466a4724d623c73f",
+    "fused_dropout bfloat16 4096x3072 rate=1e-09 ctr=0":
+        "61fbcda3afab7a23beca26827dacb0e232f20f77d1968fd0c2cc251d8067e488",
+    "fused_dropout bfloat16 4096x3072 rate=1e-09 ctr=4294979641":
+        "61fbcda3afab7a23beca26827dacb0e232f20f77d1968fd0c2cc251d8067e488",
+    "fused_dropout bfloat16 64x1001+1 rate=0.1 ctr=0":
+        "1334cd5f46badeb5cc60b061491379969567d49539552cdd0bf646f423e6906b",
+    "fused_dropout bfloat16 64x1001+1 rate=0.1 ctr=4294979641":
+        "2e815b6c4f051e17b177bad8a546c48495617ec1591e4e7291e55f35775137e1",
+    "fused_dropout bfloat16 64x1001+1 rate=0.5 ctr=0":
+        "0d978e2c77eaa54a137be3a37b5b433b5b09199a425351e60e0399da858a933d",
+    "fused_dropout bfloat16 64x1001+1 rate=0.5 ctr=4294979641":
+        "d602239bcde34e6704aa96b9f4ada66c203be864a55c12556ad8dad1b26ed260",
+    "fused_dropout bfloat16 64x1001+1 rate=1e-09 ctr=0":
+        "d647771adbb4ee145e58e3a7072342a6180f4dfeabdef9f4077fc843c4df4039",
+    "fused_dropout bfloat16 64x1001+1 rate=1e-09 ctr=4294979641":
+        "d647771adbb4ee145e58e3a7072342a6180f4dfeabdef9f4077fc843c4df4039",
+    "fused_dropout bfloat16 8x128 rate=0.1 ctr=0":
+        "a79bc8b8b143f1119a58e79db46757ede845c1c7e4c19ea00713c60c670717d8",
+    "fused_dropout bfloat16 8x128 rate=0.1 ctr=4294979641":
+        "b0cd57355f1e5d89f30df82917fea1b3c28e012beb610e4c822c6a1bf3305afe",
+    "fused_dropout bfloat16 8x128 rate=0.5 ctr=0":
+        "a3cab49e64a4c02e8d48fe7c865db3a9ed5428b43d97ad781c0c03de1b9f07a0",
+    "fused_dropout bfloat16 8x128 rate=0.5 ctr=4294979641":
+        "84c77f374be916ec741c565f4c90cb2281dbbf6e51929605a2c9f88bc88ff827",
+    "fused_dropout bfloat16 8x128 rate=1e-09 ctr=0":
+        "0d28ed410bf4961bb8afe210ba0d0f84a4d0a62672aff32a50c7160cc682b045",
+    "fused_dropout bfloat16 8x128 rate=1e-09 ctr=4294979641":
+        "0d28ed410bf4961bb8afe210ba0d0f84a4d0a62672aff32a50c7160cc682b045",
+    "fused_dropout bfloat16 special rate=0.1 ctr=0":
+        "c88d2772a4d03b2a1f36efa156138965d0861b9063b15965424df24c5e8edc83",
+    "fused_dropout bfloat16 special rate=0.1 ctr=4294979641":
+        "a9017d367341a02615bfaa63f1ba655d990d5a9e2dac63c1117dce171dc83d9b",
+    "fused_dropout bfloat16 special rate=0.5 ctr=0":
+        "974050f972d02e607e320db7065a606944c36aba4dead7cecdc7e2fb985e9bcc",
+    "fused_dropout bfloat16 special rate=0.5 ctr=4294979641":
+        "c1f2b57e9088f19fe5c4083d1e3fae15693f5188c7023d3c94fd1fa1b82487cf",
+    "fused_dropout bfloat16 special rate=1e-09 ctr=0":
+        "2b539506bb905da32274527274f62dbd498233ba755b3f2cd2d7f64ca3a99265",
+    "fused_dropout bfloat16 special rate=1e-09 ctr=4294979641":
+        "2b539506bb905da32274527274f62dbd498233ba755b3f2cd2d7f64ca3a99265",
+    "fused_dropout bfloat16 special+nan rate=0.1 ctr=0":
+        "440621f8dedb129f54e82e8cc47301282713c55d3a1cce38fec00d1d3297d8dc",
+    "fused_dropout bfloat16 special+nan rate=0.1 ctr=4294979641":
+        "10e86a43105ba6d5298dd35a8387bafba3ff2831bf5b015430085b9169fad098",
+    "fused_dropout bfloat16 special+nan rate=0.5 ctr=0":
+        "59e67ec3bfaa88817359d671bd96ef547a7c4d2c9abfa8ad8fedf13695f20834",
+    "fused_dropout bfloat16 special+nan rate=0.5 ctr=4294979641":
+        "080fefd9cb04e46b69328094b690722f1293056dc63a0ebad022bd3afb5b15be",
+    "fused_dropout bfloat16 special+nan rate=1e-09 ctr=0":
+        "71d58afa44afd4dfc005e962d9dbe6e500bccdc53249e8d8fa677bf9d556fc48",
+    "fused_dropout bfloat16 special+nan rate=1e-09 ctr=4294979641":
+        "71d58afa44afd4dfc005e962d9dbe6e500bccdc53249e8d8fa677bf9d556fc48",
+    "fused_dropout float16 3x1001 rate=0.1 ctr=0":
+        "58e1ab6765944ec46168e682fd175fb6653b9db1cb4be1f038fb63e09d3caf79",
+    "fused_dropout float16 3x1001 rate=0.1 ctr=4294979641":
+        "260c00c3f648c6890ca70f0afef4feb108107baa0015df49bed03a4b43d5bca1",
+    "fused_dropout float16 3x1001 rate=0.5 ctr=0":
+        "e0d05b3ea034414530f11099657ec0c6b4d88ccfea791efee1208e846e56b6b4",
+    "fused_dropout float16 3x1001 rate=0.5 ctr=4294979641":
+        "e8dd6fab9ee927f34238a7f6254e2aa06fb68573a6a35024727f68ea16034465",
+    "fused_dropout float16 3x1001 rate=1e-09 ctr=0":
+        "945c6b86acb54a0ce0dc2fe2cc887438493db2b12acea86248c83ae528652ae7",
+    "fused_dropout float16 3x1001 rate=1e-09 ctr=4294979641":
+        "945c6b86acb54a0ce0dc2fe2cc887438493db2b12acea86248c83ae528652ae7",
+    "fused_dropout float16 4096x3072 rate=0.1 ctr=0":
+        "d02f76342a07dfcde93ddf045716cb3c0786e1a3adb477ee32315cabf07df214",
+    "fused_dropout float16 4096x3072 rate=0.1 ctr=4294979641":
+        "6e97735e5315b9ffe75bcfb1f4b7c6b8439456691f6273f45e9f4744d300093c",
+    "fused_dropout float16 4096x3072 rate=0.5 ctr=0":
+        "37e53f7209cfa96edd82a616ae6ac14da370087eaddd9ef7f782661f20679968",
+    "fused_dropout float16 4096x3072 rate=0.5 ctr=4294979641":
+        "ec461a0d7261367e13cc2b2aa4db93bbe2f41528282101739c8f538b57692e0a",
+    "fused_dropout float16 4096x3072 rate=1e-09 ctr=0":
+        "5a824f475367867ed4461fc24ad11a5e15acb4cbae90b4904833b8dab7d644b1",
+    "fused_dropout float16 4096x3072 rate=1e-09 ctr=4294979641":
+        "5a824f475367867ed4461fc24ad11a5e15acb4cbae90b4904833b8dab7d644b1",
+    "fused_dropout float16 64x1001+1 rate=0.1 ctr=0":
+        "5acedd7610824c7e6f1d2fc5bee1420b7b288b529a5c76bb488e27b4d1f0e580",
+    "fused_dropout float16 64x1001+1 rate=0.1 ctr=4294979641":
+        "fb59ef88fd8c1ebe6656bf6ddb15e16165714d5583e3f962fc12f1254a50566a",
+    "fused_dropout float16 64x1001+1 rate=0.5 ctr=0":
+        "1375a73a01c71aefe14d727786408f257d50a8ba04d0bc3ef16551a378c4a9d5",
+    "fused_dropout float16 64x1001+1 rate=0.5 ctr=4294979641":
+        "31128bab228caf7bdd0aa02da3aaef394867c5a0cd1178ea84f5de5cd954d8b2",
+    "fused_dropout float16 64x1001+1 rate=1e-09 ctr=0":
+        "146768d538bc2286fb4a33be3cc355cf40c4e1f26bc9d5fa71dd3ebbf5bbcd6d",
+    "fused_dropout float16 64x1001+1 rate=1e-09 ctr=4294979641":
+        "146768d538bc2286fb4a33be3cc355cf40c4e1f26bc9d5fa71dd3ebbf5bbcd6d",
+    "fused_dropout float16 8x128 rate=0.1 ctr=0":
+        "8156368a46dc9a24ba34a2ec0a4b758bec38d57bc62fe5412a49facced80499c",
+    "fused_dropout float16 8x128 rate=0.1 ctr=4294979641":
+        "2b2aa860acd3e56703d9128da021206a2c75bfbf6cb2698b1ea04dc2298f3054",
+    "fused_dropout float16 8x128 rate=0.5 ctr=0":
+        "801f9bc5aab6fd627877551fb352e2b0dc91e1224b17c73b5837dd8b845f8fcf",
+    "fused_dropout float16 8x128 rate=0.5 ctr=4294979641":
+        "de56803f2da30a43382505419630c9363fadaf91f4ee68188aea46968608aaf1",
+    "fused_dropout float16 8x128 rate=1e-09 ctr=0":
+        "795269b2aeaade6d8be24b7aeb5a74920cbec565b723bbdee6a8ba666e3dda42",
+    "fused_dropout float16 8x128 rate=1e-09 ctr=4294979641":
+        "795269b2aeaade6d8be24b7aeb5a74920cbec565b723bbdee6a8ba666e3dda42",
+    "fused_dropout float16 special rate=0.1 ctr=0":
+        "3be7cee87e5e1375aea8bcc0662940ff9ac39cd045aecf81baec6a65846175c9",
+    "fused_dropout float16 special rate=0.1 ctr=4294979641":
+        "8f6ae4d9999bc3dde6618fcacbc20a27c813b45186972b730aa2cf55ab3232f1",
+    "fused_dropout float16 special rate=0.5 ctr=0":
+        "92b2984b854b64434d135e293e976801d6a0ea9d0a9f41c109b4ed32432eb88f",
+    "fused_dropout float16 special rate=0.5 ctr=4294979641":
+        "a267ec49bf516c8b486f9371c4e24aedad0434381bdef092695ff80bd0ca919f",
+    "fused_dropout float16 special rate=1e-09 ctr=0":
+        "f6c318c213637662655e2d81cba01bba013c20a1164b889bb568f65fc75c1d6c",
+    "fused_dropout float16 special rate=1e-09 ctr=4294979641":
+        "f6c318c213637662655e2d81cba01bba013c20a1164b889bb568f65fc75c1d6c",
+    "fused_dropout float16 special+nan rate=0.1 ctr=0":
+        "fd6274daf993c985ec61d449a04b31d50790fc0680746f65869b9a02de90aa79",
+    "fused_dropout float16 special+nan rate=0.1 ctr=4294979641":
+        "18ea8cc8f1a969cd7c96d0a1c808b3276960597ca110b1860736e05d15240b20",
+    "fused_dropout float16 special+nan rate=0.5 ctr=0":
+        "042d2231d0f651d767b03f9f06196e1dd0b04b346538b9bb3ddb9b7c0b6bb935",
+    "fused_dropout float16 special+nan rate=0.5 ctr=4294979641":
+        "e6c44124ee49ead7aa7932f03276fd5e95dab640f9785621e895d09d507b2d9f",
+    "fused_dropout float16 special+nan rate=1e-09 ctr=0":
+        "1fb9359bea91560b789068e38d4ee183418cc1f9d027b1af655546296080a95e",
+    "fused_dropout float16 special+nan rate=1e-09 ctr=4294979641":
+        "1fb9359bea91560b789068e38d4ee183418cc1f9d027b1af655546296080a95e",
+    "fused_dropout float32 3x1001 rate=0.1 ctr=0":
+        "5ae31b91513bdb3f644c8d6757943949049b8183f5b904b0eca58c91e7daf5bd",
+    "fused_dropout float32 3x1001 rate=0.1 ctr=4294979641":
+        "c728c18b3ebb6958ad8b2d0c53624f8c916dfbd37da21cb26bf2cf132209616d",
+    "fused_dropout float32 3x1001 rate=0.5 ctr=0":
+        "09a82aaff603fca875e98b05ee57b08d4429488eb97d94d156601e528314544f",
+    "fused_dropout float32 3x1001 rate=0.5 ctr=4294979641":
+        "f2132d299f926ece0da3c56571083558b147d17838962c1239d7e7a2fabfcc94",
+    "fused_dropout float32 3x1001 rate=1e-09 ctr=0":
+        "17ae1551c1a31be761ec71a3fa4fb282968aabca9237563e18a7bb9448565f2b",
+    "fused_dropout float32 3x1001 rate=1e-09 ctr=4294979641":
+        "17ae1551c1a31be761ec71a3fa4fb282968aabca9237563e18a7bb9448565f2b",
+    "fused_dropout float32 4096x3072 rate=0.1 ctr=0":
+        "9b6d8d0c1fad82d605b9136e42bf547a6a2421bdfccaf87ccddd59c363e8ef0c",
+    "fused_dropout float32 4096x3072 rate=0.1 ctr=4294979641":
+        "c745df1dcb2e6286503af44773fcc6756340929eb317c0f9c207a9d37c546c0f",
+    "fused_dropout float32 4096x3072 rate=0.5 ctr=0":
+        "3f78f9cd9cae7df75acb668df4948b7eb3b2992a7dd630608e04493a502827bc",
+    "fused_dropout float32 4096x3072 rate=0.5 ctr=4294979641":
+        "0cca3b9a60e2e4429f98c16d913efd761b4f9af95bd9e47157108b6d84c02d76",
+    "fused_dropout float32 4096x3072 rate=1e-09 ctr=0":
+        "ce6fbc720905720d9ae17b977535eb98d397057f06dc71b4141f3f08a2ea7c00",
+    "fused_dropout float32 4096x3072 rate=1e-09 ctr=4294979641":
+        "ce6fbc720905720d9ae17b977535eb98d397057f06dc71b4141f3f08a2ea7c00",
+    "fused_dropout float32 64x1001+1 rate=0.1 ctr=0":
+        "d6ac101de3b29ce5b14d169b641eb7f7ee5677c858015496d2e38c795416f52b",
+    "fused_dropout float32 64x1001+1 rate=0.1 ctr=4294979641":
+        "7f9dab312f0d331f4e613c3f519f65cf551b5d189eff2185c3b3dd2b4f881bbd",
+    "fused_dropout float32 64x1001+1 rate=0.5 ctr=0":
+        "c5fc72d2cf157890a49238b8cfa65e8f5c2ee6feab84442f4121239261781469",
+    "fused_dropout float32 64x1001+1 rate=0.5 ctr=4294979641":
+        "d5c1101bb96751ae9019f5d1f5f1161d818d9ae454cb301fb61ca4965511d86e",
+    "fused_dropout float32 64x1001+1 rate=1e-09 ctr=0":
+        "a425bdefaf5550a0655e03ac9aef89d2e1f7b2bbc1b4be838d6628e3cabbe083",
+    "fused_dropout float32 64x1001+1 rate=1e-09 ctr=4294979641":
+        "a425bdefaf5550a0655e03ac9aef89d2e1f7b2bbc1b4be838d6628e3cabbe083",
+    "fused_dropout float32 8x128 rate=0.1 ctr=0":
+        "8f3cf39584c96de75b1527c7b3b045f278a86cf1c3c422c445887b00f6db63dc",
+    "fused_dropout float32 8x128 rate=0.1 ctr=4294979641":
+        "957a86937e16f0a95d61da6d41a6f7dfc92741515c70f8d1e78aa7363765015e",
+    "fused_dropout float32 8x128 rate=0.5 ctr=0":
+        "f7f82f242be7bfa8e86e49b63d17b15a38200d3cb1829905faf63b37be82312c",
+    "fused_dropout float32 8x128 rate=0.5 ctr=4294979641":
+        "61615bf22ac4b39b8d9dc7c2d3ad8de4ae097b6d195c68300e4c09abbb70745a",
+    "fused_dropout float32 8x128 rate=1e-09 ctr=0":
+        "7cf2c9f0d457a7fa459b7d712cce00ffa3c6e9a76895a049fa7b1a561ae14593",
+    "fused_dropout float32 8x128 rate=1e-09 ctr=4294979641":
+        "7cf2c9f0d457a7fa459b7d712cce00ffa3c6e9a76895a049fa7b1a561ae14593",
+    "fused_dropout float32 special rate=0.1 ctr=0":
+        "2a3b839039ac70b0bcc851adf759f7670524218bcfa24188f8cf43d526de20fb",
+    "fused_dropout float32 special rate=0.1 ctr=4294979641":
+        "5be3aee886b38fbe8fbe821670421b4b4ac526e6f129859a8d2ce21ccd6939a2",
+    "fused_dropout float32 special rate=0.5 ctr=0":
+        "1ade786e4074ba18ee2bd2766172828c399d665261518ed32495db46b604912c",
+    "fused_dropout float32 special rate=0.5 ctr=4294979641":
+        "078ce33010822ca22bd3a8200407c9a43cc3dd09148b2ec1945431916599c297",
+    "fused_dropout float32 special rate=1e-09 ctr=0":
+        "d14f533bd7c76509a62d51fe709171ae94cef5c553a7408f2cbba08fbc85b9b0",
+    "fused_dropout float32 special rate=1e-09 ctr=4294979641":
+        "d14f533bd7c76509a62d51fe709171ae94cef5c553a7408f2cbba08fbc85b9b0",
+    "fused_dropout float32 special+nan rate=0.1 ctr=0":
+        "f7fb1661fabc4d1361c1540bf9f758d0cbab52c888f8738eea3085da327de413",
+    "fused_dropout float32 special+nan rate=0.1 ctr=4294979641":
+        "d52b4efeeeec1ca7791feba53bad938b605a0ca6e048ca4927d0ac6794774e6a",
+    "fused_dropout float32 special+nan rate=0.5 ctr=0":
+        "15f84adba8d3e94d09b5cec5b33113bbc397aa4ec2a343292f2634557f83d2c4",
+    "fused_dropout float32 special+nan rate=0.5 ctr=4294979641":
+        "1c60276954e0ca5e3a5e8aa49dee9802b9aca8e25e3bb82cf12fd7faf2f14bd0",
+    "fused_dropout float32 special+nan rate=1e-09 ctr=0":
+        "ae4769a93ff2a07b4d7366da9bd09552bdd4b097a45ed5d782acb1179a60dfed",
+    "fused_dropout float32 special+nan rate=1e-09 ctr=4294979641":
+        "ae4769a93ff2a07b4d7366da9bd09552bdd4b097a45ed5d782acb1179a60dfed",
+}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
-    got = compute()
+    got = {**compute(), **compute_dropout()}
     text = json.dumps(got, indent=1, sort_keys=True)
     if args.out:
         with open(args.out, "w") as f:

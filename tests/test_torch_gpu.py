@@ -122,6 +122,14 @@ def test_block_kernels_reproduce_recorded_digests(cuda):
     assert digests.mismatches(got) == []
 
 
+def test_fused_dropout_kernel_reproduces_recorded_digests(cuda):
+    """Kernel C writes, byte for byte, what the recorded build wrote (every
+    dtype x rate x counter x input, special values and NaNs included)."""
+    got = digests.compute_dropout(cuda)
+    assert set(got) == set(digests.DROPOUT_RECORDED)
+    assert digests.mismatches(got) == []
+
+
 # (T, S, offset): one column (the stream API's S = 1), S that no 16-byte
 # run divides, odd row counts, and a row wider than one block of runs.
 EDGE_SHAPES = [(33, 1, 7), (8, 1, 2 ** 32 + 12345), (7, 3, 12345),

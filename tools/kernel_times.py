@@ -12,8 +12,10 @@ tile states, the C entry every version of the library has) and a whole
 faithful ``engine.generate`` on the host clock (its tile-state prep
 included), Philox ``Tensor.random_`` over the same (T, S) as the
 yardstick, kernel C (fused dropout, bfloat16 and float32 at (32768,
-3072)), D and E (pi and option partials, 2^14 lanes x 2^14 draws) and F
-(gumbel-max at (V, B) = (256000, 64) and (256000, 256)).
+3072), with ``ops.fused_dropout`` end to end on the host clock and
+``F.dropout`` as its yardstick), D and E (pi and option partials, 2^14
+lanes x 2^14 draws) and F (gumbel-max at (V, B) = (256000, 64) and
+(256000, 256)).
 
 Two calls may land on two cards, so compare checkouts inside one call,
 in turns: parent, change, change, parent.
@@ -28,31 +30,20 @@ import sys
 import time
 from pathlib import Path
 
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import host_ms, time_cuda  # noqa: E402
+
 T, S = 4096, 2 ** 14
 SEED = 42
 DROPOUT_SHAPE = (8 * 4096, 3072)
 APP = 2 ** 14
 
 
-def time_cuda(fn, reps: int, warmup: int = 2) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def measure(device) -> dict:
     import torch
     from repro_torch.core import engine, lcg, sampler
     from repro_torch.inference.kernels import gumbel_argmax as ga
-    from repro_torch.kernels import build, fused_dropout as fd, mc
+    from repro_torch.kernels import build, fused_dropout as fd, mc, ops
     from repro_torch.kernels import thundering_block as tb
     from repro_torch.core import stream
 
@@ -119,6 +110,11 @@ def measure(device) -> dict:
         y = torch.empty_like(x)
         ms[name] = time_cuda(lambda: fd.fused_dropout_2d(
             x, s.h, s.x0, s.ctr, 0.1, out=y), reps=20)
+        ms[name + "_ops_wall"] = host_ms(lambda: ops.fused_dropout(x, s, 0.1),
+                                         reps=20)
+        ms[name + "_F_dropout"] = time_cuda(
+            lambda: torch.nn.functional.dropout(x, 0.1, training=True),
+            reps=20)
         del x, y
     bt_mc, tiles_mc = mc.tile_layout(APP, mc.DEFAULT_BLOCK_T)
     for name, fn, purposes, kw in (
