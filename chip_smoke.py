@@ -15,7 +15,14 @@ ops.fused_dropout) at 2**28 draws and a (32768, 3072) activation, and the
 inference tier (the continuous batcher over the gumbel-max sampler at
 gemma-7b's vocabulary of 256000, with crash replay in a subprocess) -
 checks what comes out, and times the kernels with CUDA events beside their
-bounds and torch's own generators and samplers.
+bounds and torch's own generators and samplers.  Then it checks the
+repaired faults (kernel C's re-recorded subnormal digests, stream.normal,
+kernel F on subnormal logits) and drives the quality path: the
+generate_sharded fan-out at the main path's width on meshes of shards of
+the card and on a CPU + card split, a mesh BlockService, and the port's
+Crush-lite battery (fast profile over every row, each cuda row against its
+torch twin; the full profile on the main delivery rows), its launch counts
+read around it.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -98,20 +106,20 @@ EARLIER_MS = {"thundering_ctr splitmix64 bits float32": 0.2525,
 #   dropout bf16: the fewest INT32 instructions a build of this function
 #     was seen to need, the "mulhi" form of tools/dropout_variants.py
 #     (splitmix64's shifts as IMAD on the FMA pipe), its loop over whole
-#     16-byte runs of 8 elements, 06a0-1990: 147 INT32 (149 IMAD) of 304
-#                                                                      /8
+#     16-byte runs of 8 elements, with the subnormal flush: 155 INT32
+#     (150 IMAD) of 316                                                /8
 #     Its INT32, IMAD and issue times all fall below the bytes', so the
 #     bound is the bytes'.  The kept build (fused_dropout_kernel<
-#     __nv_bfloat16>, 0670-1880: 180 INT32 of 290) runs faster than that
-#     form and still misses the byte bound by its INT32 pipe.
-#   dropout f32: the kept build's loop over whole runs of 4, 0760-1110:
-#     93 INT32 of 156                                                  /4
+#     __nv_bfloat16>: 188 INT32 of 302) runs faster than that form and
+#     still misses the byte bound by its INT32 pipe.
+#   dropout f32: the kept build's loop over whole runs of 4: 90 INT32 of
+#     167                                                              /4
 # A warp scheduler issues one instruction per clock: 132 SMs x 4 x 32 lanes
 # x 1.98 GHz.  The operation bound is the larger of the INT32 pipe's time
 # and the issue time.
 APP_OPS_PER_ELEMENT = {"pi": (50.0, 87.0), "option": (70.0, 189.0),
-                       "dropout_bf16": (147 / 8, 304 / 8),
-                       "dropout_f32": (93 / 4, 156 / 4)}
+                       "dropout_bf16": (155 / 8, 316 / 8),
+                       "dropout_f32": (90 / 4, 167 / 4)}
 DISPATCH_OPS_PER_S = 132 * 4 * 32 * 1.98e9
 
 # The applications' main path (paper Sec. 6): the README's estimate_pi
@@ -1450,6 +1458,286 @@ def _decode_step_breakdown(device) -> None:
             "recorded no device time)")
 
 
+# ---------------------------------------------------------------------------
+# repairs, the sharded fan-out and the quality battery
+# ---------------------------------------------------------------------------
+
+NORMAL_DRAWS = 2 ** 20
+#: meshes of the sharded phase: (shape, axis names, devices)
+SHARD_MESHES = (((1,), ("streams",)), ((3,), ("streams",)),
+                ((4,), ("streams",)), ((2, 2), ("hosts", "streams")))
+QUALITY_FULL_ROWS = ("thundering/ctr/cuda", "thundering/faithful/cuda",
+                     "thundering/ctr/sharded", "thundering/ctr/service")
+QUALITY_DIR = ROOT / "build" / "chip_smoke"
+
+
+def _card_mesh(device, shape, names):
+    from repro_torch.core import engine
+    n = 1
+    for d in shape:
+        n *= d
+    return engine.Mesh.of([device] * n, shape, names)
+
+
+def phase_repairs(device) -> None:
+    """The repaired faults on the card: kernel C's 24 re-recorded digests
+    (bfloat16 / float32 subnormal inputs read as zeros) and its
+    per-element epilogue on the same values, ``stream.normal``
+    (the reference's ErfInv32 in float32 ops) against the port's CPU
+    result and a float64 truth, and kernel F on subnormal logits under a
+    top-k mask against its plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.core import sampler, stream
+    from repro_torch.kernels import digests
+    from repro_torch.kernels import fused_dropout as fd
+    from repro_torch.inference.kernels import gumbel_argmax as ga
+    n = 0
+    for key, (dtype, name, rate, ctr) in digests.dropout_cases(
+            ("special", "special+nan")):
+        if dtype == "float16":
+            continue
+        x = digests.dropout_input(dtype, name, device)
+        s = stream.advance(stream.new_stream(digests.SEED, 0, device=device),
+                           ctr)
+        got = digests.digest(fd.fused_dropout_2d(x, s.h, s.x0, s.ctr, rate))
+        require(got == digests.DROPOUT_RECORDED[key],
+                f"kernel C differs from its re-recorded digest: {key}")
+        n += 1
+    log(f"repairs: kernel C writes the {n} re-recorded bfloat16 / float32 "
+        f"special-value digests")
+    s = stream.advance(stream.new_stream(digests.SEED, 0, device=device), 3)
+    for dtype in ("float32", "bfloat16", "float16"):
+        view = torch.int32 if dtype == "float32" else torch.int16
+        for layout, x in digests.special_layouts(dtype, device):
+            for rate in (0.1, 0.5):
+                got = fd.fused_dropout_2d(x, s.h, s.x0, s.ctr, rate)
+                want = fd.fused_dropout_2d_plain(x, s.h, s.x0, s.ctr, rate)
+                require(torch.equal(got.view(view), want.view(view)),
+                        f"kernel C's per-element epilogue differs from its "
+                        f"plain version: {dtype} {layout} rate {rate}")
+    log("repairs: kernel C's per-element epilogue (misaligned view, ragged "
+        "last run) equals its plain version bit for bit on the special "
+        "values, subnormals included, at rates 0.1 and 0.5")
+    card = stream.normal(stream.new_stream(SEED, 0, device=device),
+                         (NORMAL_DRAWS,)).cpu()
+    cpu_s = stream.new_stream(SEED, 0, device="cpu")
+    host = stream.normal(cpu_s, (NORMAL_DRAWS,))
+    u = stream.uniform(cpu_s, (NORMAL_DRAWS,), torch.float32, -1.0, 1.0)
+    tiny = np.float32(1e-7)
+    u = torch.clamp(u, float(np.float32(-1.0) + tiny),
+                    float(np.float32(1.0) - tiny))
+    truth = (torch.erfinv(u.double()) * math.sqrt(2.0)).float()
+    vs_cpu = float(sampler.ulp_error(card, host).max())
+    vs_truth = float(sampler.ulp_error(card, truth).max())
+    cpu_truth = float(sampler.ulp_error(host, truth).max())
+    log(f"repairs: stream.normal at {NORMAL_DRAWS} draws on the card: max "
+        f"ulp_error {vs_cpu} against the port's CPU result, {vs_truth} "
+        f"against float64 erfinv (the CPU result's own: {cpu_truth}; "
+        f"the reference's ErfInv32 is that far from the truth at |u| > "
+        f"0.999)")
+    require(vs_cpu <= ULP_BOUND, f"stream.normal card vs CPU {vs_cpu} ULP")
+    require(vs_truth <= cpu_truth + ULP_BOUND,
+            f"stream.normal card vs float64 truth {vs_truth} ULP")
+    V, B = 4096, 64
+    pats = np.array([0x00000001, 0x80000001, 0x007FFFFF, 0x807FFFFF,
+                     0x00400000, 0x80400000, 0x0, 0x80000000, 0x00800000,
+                     0x80800000], np.uint32)
+    rng = np.random.default_rng(11)
+    bits = pats[rng.integers(0, len(pats), size=(B, V))]
+    logits = torch.from_numpy(bits.view(np.float32).copy()).to(device)
+    _, h, x0 = _ga_case(V, B, device)
+    for top_k, inv_temp in ((0, 1.0), (3, 0.5), (40, 2.0)):
+        th = (torch.topk(logits, top_k, dim=-1).values[:, -1].contiguous()
+              if top_k else torch.full((B,), float("-inf"), device=device))
+        _ga_check(f"subnormal logits top_k={top_k}", logits, h, x0, 977, th,
+                  inv_temp)
+    log("repairs: kernel F tokens and winning scores equal the plain "
+        "version on subnormal logits at top-k 0, 3, 40")
+
+
+def phase_sharded(device) -> None:
+    """``engine.generate_sharded`` at the main path's width against
+    ``generate``, bit for bit: meshes of 1, 3 and 4 shards of the card and
+    a (2, 2) mesh, both modes, both decorrelators, bits and a float stage;
+    S = 2**14 + 1 over 4 shards; a CPU + card split; 4 shards timed
+    against one ``generate``; and a mesh ``BlockService`` against a
+    mesh-less one over 4 leased windows."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.runtime.blocks import BlockService
+    n = 0
+
+    def check(plan, mesh, names, tag):
+        nonlocal n
+        got = engine.generate_sharded(plan, mesh=mesh, axis_names=names)
+        want = engine.generate(plan)
+        require(got.device.type == mesh.devices.flat[0].type
+                and got.dtype == want.dtype
+                and torch.equal(got.to(want.device).view(torch.uint8),
+                                want.view(torch.uint8)),
+                f"generate_sharded != generate: {tag}")
+        n += 1
+
+    for mode, deco in (("ctr", "splitmix64"), ("ctr", "fmix32"),
+                       ("faithful", "splitmix64")):
+        plan = engine.make_plan(seed=SEED, num_streams=S_FULL,
+                                num_steps=T_FULL, offset=HIGH_OFFSET,
+                                mode=mode, deco=deco, device=device)
+        for shape, names in SHARD_MESHES:
+            mesh = _card_mesh(device, shape, names)
+            for spec in ("bits", "uniform"):
+                check(dataclasses.replace(plan, sampler=spec), mesh, names,
+                      f"{mode}/{deco} {spec} mesh {shape}")
+        odd = engine.make_plan(seed=SEED, num_streams=S_FULL + 1,
+                               num_steps=T_FULL, mode=mode, deco=deco,
+                               device=device)
+        check(odd, _card_mesh(device, (4,), ("streams",)), ("streams",),
+              f"{mode}/{deco} S = 2**14 + 1 over 4 shards")
+        small = engine.make_plan(seed=SEED, num_streams=130, num_steps=64,
+                                 offset=HIGH_OFFSET, mode=mode, deco=deco,
+                                 device=device)
+        split = engine.Mesh.of([torch.device("cpu"), device], (2,),
+                               ("streams",))
+        check(small, split, ("streams",), f"{mode}/{deco} CPU + card")
+    sync(device)
+    log(f"sharded: {n} generate_sharded blocks equal generate bit for bit "
+        f"(T = {T_FULL}, S = {S_FULL} and {S_FULL + 1}; 1, 3, 4 and 2x2 "
+        f"shards of the card; (64, 130) over the CPU and the card)")
+    base = engine.make_plan(seed=SEED, num_streams=S_FULL, num_steps=T_FULL,
+                            device=device)
+    four = _card_mesh(device, (4,), ("streams",))
+    one_ms = time_cuda(lambda: engine.generate(base), reps=20)
+    four_ms = time_cuda(lambda: engine.generate_sharded(base, mesh=four),
+                        reps=20)
+    log(f"sharded: generate {one_ms:.4f} ms, generate_sharded over 4 shards "
+        f"of the card {four_ms:.4f} ms (CUDA events, bits at {T_FULL} x "
+        f"{S_FULL}: four launches of {S_FULL // 4} columns and the "
+        f"torch.cat)")
+    for mode in ("ctr", "faithful"):
+        meshed = BlockService(seed=SEED, mesh=four, device=device)
+        plain = BlockService(seed=SEED, device=device)
+        for svc in (meshed, plain):
+            svc.open("smoke/mesh", num_streams=S_FULL, mode=mode)
+        for _ in range(4):
+            a = meshed.take("smoke/mesh", T_FULL // 4)
+            b = plain.take("smoke/mesh", T_FULL // 4)
+            require(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                    f"mesh BlockService != mesh-less ({mode})")
+        require(meshed.ledger_state() == plain.ledger_state(),
+                "mesh BlockService ledger differs")
+    log("sharded: a 4-shard BlockService hands back the mesh-less "
+        "service's bytes over 4 leased windows, both modes")
+
+
+def _twin_rows(report) -> int:
+    """Each cuda row's statistics equal its torch twin's (both rows in the
+    report): the same bits, so the same numbers."""
+    rows = {g["name"]: g for g in report["generators"]}
+    n = 0
+    for name, g in rows.items():
+        twin = rows.get(name[:-len("cuda")] + "torch")
+        if not name.endswith("/cuda") or twin is None:
+            continue
+        require(g["intra"] == twin["intra"] and g["cross"] == twin["cross"],
+                f"battery row {name} differs from its torch twin")
+        n += 1
+    return n
+
+
+def phase_coalescer(device) -> None:
+    """One ``Coalescer.flush`` of 2**14 single-column requests of T = 4096
+    samples from distinct tenants - the battery's service draw at the main
+    path's width: the whole flush on the host clock (it ends in the
+    block's copy to the host), its one engine call on CUDA events, and
+    the journal replay of every request."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime.blocks import BlockService, channel_purpose
+    from repro_torch.service import audit
+    from repro_torch.service.frontend import (Coalescer, RandRequest,
+                                              class_channel)
+    from repro_torch.service.tenants import TenantRegistry
+    journal = audit.Journal()
+    co = Coalescer(BlockService(seed=SEED, device=device), TenantRegistry(),
+                   journal=journal, max_rows=T_FULL)
+    reqs = [RandRequest(tenant_id=f"smoke/{j:05d}", shape=(T_FULL,),
+                        rid=f"c{j:05d}") for j in range(S_FULL)]
+    t0 = time.perf_counter()
+    responses, assignments, errors = co.flush(reqs)
+    flush_s = time.perf_counter() - t0
+    require(not errors and len(responses) == S_FULL, f"flush: {errors}")
+    fn = co._window_fn(channel_purpose(class_channel("bits", "float32")),
+                       T_FULL, S_FULL, "bits", "float32")
+    tags = [t for a in assignments for t in a.tags]
+    call_ms = time_cuda(lambda: fn(tags, assignments[0].lo), reps=10)
+    t0 = time.perf_counter()
+    replayed = audit.replay(journal, seed=SEED, device=device)
+    replay_s = time.perf_counter() - t0
+    for rid in (reqs[0].rid, reqs[-1].rid):
+        require(np.array_equal(responses[rid], replayed[rid]),
+                f"coalesced response {rid} != its replay")
+    stats = co.stats()
+    log(f"coalescer: flush of {S_FULL} requests of {T_FULL} samples "
+        f"{flush_s:.3f} s (host clock, the ({T_FULL}, {S_FULL}) block copied to "
+        f"the host); its engine call {call_ms:.4f} ms (CUDA events, tag "
+        f"leaf offsets derived on the card); replay of every request "
+        f"{replay_s:.3f} s; stats {stats['engine_calls']} engine call, "
+        f"{stats['lease_calls']} lease, fill {stats['fill_ratio']}")
+
+
+def phase_quality(device) -> None:
+    """The port's Crush-lite battery on the card: the ``fast`` profile over
+    every row (each as expected; each cuda row's statistics equal its
+    torch twin's), then the ``full`` profile - the cross-battery at the
+    main path's width - on the main delivery rows; reports under
+    ``build/chip_smoke/``."""
+    from repro_torch.quality import battery
+    QUALITY_DIR.mkdir(parents=True, exist_ok=True)
+    for profile, rows in (("fast", None), ("full", list(QUALITY_FULL_ROWS))):
+        timings = {}
+        t0 = time.perf_counter()
+        report = battery.run_battery(profile, generators=rows, device=device,
+                                     timings=timings)
+        secs = time.perf_counter() - t0
+        (QUALITY_DIR / f"QUALITY_{profile}.json").write_text(
+            battery.report_json(report))
+        for g in report["generators"]:
+            t = timings[g["name"]]
+            log(f"  battery[{profile}] {g['name']}: draw {t['draw_s']:.3f} "
+                f"s, statistics {t['stats_s']:.3f} s, ok {g['ok']}, as "
+                f"expected {g['as_expected']}")
+        bad = [g["name"] for g in report["generators"]
+               if not g["as_expected"]]
+        require(report["ok"] and not bad,
+                f"battery[{profile}] rows not as expected: {bad}")
+        twins = _twin_rows(report)
+        log(f"quality: battery[{profile}] {len(report['generators'])} rows "
+            f"as expected in {secs:.1f} s; {twins} cuda rows equal their "
+            f"torch twins")
+
+
+def phase_quality_path(device) -> dict:
+    """The slice's path - the sharded fan-out, the mesh service, the
+    coalescer at the main path's width and the battery - with the block generators' launch counts
+    set to 0 just before and read just after."""
+    from repro_torch.kernels import thundering_block as tb
+    tb.reset_counts()
+    phase_sharded(device)
+    phase_coalescer(device)
+    phase_quality(device)
+    launches = {"thundering_ctr": tb.thundering_ctr.launches,
+                "thundering_faithful": tb.thundering_faithful.launches}
+    plain_runs = (tb.thundering_ctr_plain.cuda_runs
+                  + tb.thundering_faithful_plain.cuda_runs)
+    log(f"quality path: launches {launches}; plain versions run on the "
+        f"card: {plain_runs}")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the quality path never launched: {launches}")
+    require(plain_runs == 0, "a plain version ran on a CUDA tensor")
+    return launches
+
+
 def run_phase(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -1502,18 +1790,30 @@ def main() -> int:
                                device))
         run_phase("digests", phase_digests, device)
         run_phase("golden", phase_golden, device)
-        launches = run_phase("main path", phase_main_path, device)
-        launches.update(run_phase("apps path", phase_apps, device))
-        launches.update(run_phase("inference path", phase_inference, device))
+        # each path's counts, set to 0 just before it and read just after
+        by_path = {"main": run_phase("main path", phase_main_path, device),
+                   "apps": run_phase("apps path", phase_apps, device),
+                   "inference": run_phase("inference path", phase_inference,
+                                          device)}
         timing = run_phase("timing", phase_timing, device)
         timing += run_phase("apps timing", phase_apps_timing, device)
         inf_rows = run_phase("inference timing", phase_inference_timing,
                              device)
         timing += [r for r in inf_rows if r["B"] == 64]   # the batcher's B
         run_phase("delivery", phase_delivery, device)
+        run_phase("repairs", phase_repairs, device)
+        by_path["quality"] = run_phase("quality path", phase_quality_path,
+                                       device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    # a kernel's "launches" is the count of the first path that runs it;
+    # "launches_by_path" holds every path's own count
+    launches, per_path = {}, {}
+    for path, counts in by_path.items():
+        for name, n in counts.items():
+            launches.setdefault(name, n)
+            per_path.setdefault(name, {})[path] = n
     kernels = []
     for row in timing:
         name = row["name"]
@@ -1521,6 +1821,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "launches_by_path": per_path[name],
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

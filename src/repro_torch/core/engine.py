@@ -180,15 +180,24 @@ def root_and_ctr_rows(x0: int, ctr: int, num_steps: int, device="cpu"
             ref.counter_rows(ctr, num_steps, device))
 
 
-def _lane_states(plan: GenPlan) -> np.ndarray:
-    """(S, 4) xorshift128 states of substreams 0..S-1 advanced to ctr."""
-    tbl = xorshift.lane_table(plan.num_streams)
+def _lane_states(plan: GenPlan, lanes: Optional[torch.Tensor] = None
+                 ) -> np.ndarray:
+    """(S, 4) xorshift128 states of the plan's substreams advanced to ctr:
+    substreams 0..S-1, or the columns of the (4, S) lane table ``lanes``
+    (a shard's slice of a wider table)."""
+    if lanes is None:
+        tbl = xorshift.lane_table(plan.num_streams)
+    else:
+        from repro_torch.kernels import thundering_block as _tb
+        tbl = _tb.host_lanes(lanes)
     return xorshift.jump_batch(tbl, plan.ctr) if plan.ctr else tbl
 
 
-def _faithful_start_states(plan: GenPlan) -> np.ndarray:
+def _faithful_start_states(plan: GenPlan,
+                           lanes: Optional[torch.Tensor] = None
+                           ) -> np.ndarray:
     """(S, 4) uint32 start states of the plan's substreams at ``ctr``."""
-    return np.array(_lane_states(plan), np.uint32)
+    return np.array(_lane_states(plan, lanes), np.uint32)
 
 
 def _faithful_states_at(plan: GenPlan, offsets: Sequence[int]) -> np.ndarray:
@@ -212,7 +221,7 @@ _BACKENDS: Dict[str, Callable] = {}
 
 
 def register_backend(name: str):
-    """Decorator: register fn(plan, *, block_t, out) -> (T, S)."""
+    """Decorator: register fn(plan, *, block_t, out, lanes) -> (T, S)."""
     def deco(fn):
         _BACKENDS[name] = fn
         return fn
@@ -233,14 +242,16 @@ def _copy_out(block: torch.Tensor, out: Optional[torch.Tensor]
 
 @register_backend("torch")
 def _torch_backend(plan: GenPlan, *, block_t: int,
-                   out: Optional[torch.Tensor]) -> torch.Tensor:
+                   out: Optional[torch.Tensor],
+                   lanes: Optional[torch.Tensor] = None) -> torch.Tensor:
     from repro_torch.kernels import ref
     if plan.mode == "ctr":
         bits = ref.thundering_block_ctr(plan.x0, plan.h, plan.num_steps,
                                         plan.ctr, deco=plan.deco)
     elif plan.mode == "faithful":
         xs0 = u64.limbs(torch.from_numpy(
-            _faithful_start_states(plan).view(np.int32))).to(plan.device)
+            _faithful_start_states(plan, lanes).view(np.int32))
+        ).to(plan.device)
         bits = ref.thundering_block_faithful(plan.x0, plan.h, plan.num_steps,
                                              xs0, plan.ctr)
     else:
@@ -251,7 +262,8 @@ def _torch_backend(plan: GenPlan, *, block_t: int,
 
 @register_backend("cuda")
 def _cuda_backend(plan: GenPlan, *, block_t: int,
-                  out: Optional[torch.Tensor]) -> torch.Tensor:
+                  out: Optional[torch.Tensor],
+                  lanes: Optional[torch.Tensor] = None) -> torch.Tensor:
     from repro_torch.kernels import thundering_block as _tb
     spec = sampler_mod.parse(plan.sampler)
     T = plan.num_steps
@@ -262,7 +274,8 @@ def _cuda_backend(plan: GenPlan, *, block_t: int,
     if plan.mode == "faithful":
         return _tb.thundering_faithful(
             plan.x0, plan.ctr, T, plan.h,
-            _tb.lane_states(plan.num_streams, plan.device),
+            _tb.lane_states(plan.num_streams, plan.device)
+            if lanes is None else lanes,
             block_t=_tb.tile_rows(block_t, T), sampler=spec,
             out_dtype=plan.out_dtype, out=out)
     raise ValueError(f"unknown mode {plan.mode!r}")
@@ -302,11 +315,17 @@ def _backend_fn(plan: GenPlan, backend: Optional[str]) -> Callable:
 
 def generate(plan: GenPlan, *, backend: Optional[str] = None,
              block_t: int = DEFAULT_BLOCK_T,
-             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+             out: Optional[torch.Tensor] = None,
+             lanes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(T, S) block for ``plan``, time-major; dtype set by the sampler
     stage (``torch.uint32`` bits, float32/bfloat16, bool for bernoulli).
 
     ``out`` is written in place (a donated ring buffer) and returned.
+    ``lanes`` (faithful mode) is the (4, S) xorshift128 lane table of the
+    plan's columns at substream start, on the plan's device, in place of
+    substreams 0..S-1: ``generate_sharded`` hands each shard its slice of
+    the global table, so column identity stays global (the reference's
+    ``xs0``).
 
     Example:
         >>> from repro_torch.core import engine
@@ -317,7 +336,8 @@ def generate(plan: GenPlan, *, backend: Optional[str] = None,
         ((8, 4), torch.uint32)
     """
     _validate_plan(plan)
-    return _backend_fn(plan, backend)(plan, block_t=block_t, out=out)
+    return _backend_fn(plan, backend)(plan, block_t=block_t, out=out,
+                                      lanes=lanes)
 
 
 def sample(plan: GenPlan, *, sampler: Optional[str] = None,
@@ -371,3 +391,143 @@ def generate_flat(plan: GenPlan, *, backend: Optional[str] = None,
         raise ValueError(f"generate_flat needs S=1, got S={plan.num_streams}")
     return generate(plan, backend=backend, block_t=block_t)[:, 0]
 
+
+
+# ---------------------------------------------------------------------------
+# Fan-out over a mesh of devices
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """An n-d array of devices with one name per axis, in one process.
+
+    The port's counterpart of a ``jax.sharding.Mesh``: no process group and
+    no collective, only the devices that ``generate_sharded`` hands column
+    slices to.  A device may appear more than once (several shards of one
+    card).
+
+    Example:
+        >>> from repro_torch.core import engine
+        >>> mesh = engine.Mesh.of(["cpu", "cpu", "cpu", "cpu"], (2, 2),
+        ...                       ("hosts", "streams"))
+        >>> mesh.shape
+        {'hosts': 2, 'streams': 2}
+    """
+    devices: np.ndarray
+    axis_names: Tuple[str, ...]
+
+    def __post_init__(self):
+        devs = np.empty(np.shape(self.devices), dtype=object)
+        for idx, d in np.ndenumerate(np.asarray(self.devices, dtype=object)):
+            devs[idx] = torch.device(d)
+        names = tuple(self.axis_names)
+        if devs.ndim != len(names):
+            raise ValueError(f"a {devs.ndim}-d device array needs "
+                             f"{devs.ndim} axis names, got {names}")
+        if len(set(names)) != len(names):
+            raise ValueError(f"axis names must be distinct, got {names}")
+        if devs.size == 0:
+            raise ValueError("a mesh needs at least one device")
+        object.__setattr__(self, "devices", devs)
+        object.__setattr__(self, "axis_names", names)
+
+    @classmethod
+    def of(cls, devices: Sequence, shape: Sequence[int],
+           axis_names: Sequence[str]) -> "Mesh":
+        """A mesh of ``shape`` from a flat list of devices."""
+        arr = np.empty(len(devices), dtype=object)
+        arr[:] = [torch.device(d) for d in devices]
+        return cls(arr.reshape(tuple(shape)), tuple(axis_names))
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    def shard_devices(self, axes: Sequence[str]) -> list:
+        """Devices of the shards of a fan-out over ``axes``, in shard
+        order: shard (i, j) of axes (a, b) is ``i * size(b) + j``; the
+        axes not named hold replicas, and their first device serves."""
+        order = [self.axis_names.index(ax) for ax in axes]
+        rest = [i for i in range(self.devices.ndim) if i not in order]
+        arr = np.transpose(self.devices, order + rest)
+        arr = arr.reshape(arr.shape[:len(order)] + (-1,))[..., 0]
+        return list(arr.reshape(-1))
+
+
+def default_mesh(axis_name: str = "streams", device=None) -> Mesh:
+    """1-d mesh over every local CUDA device (``device`` None or
+    ``"cuda"``), or over the one ``device`` asked for (``"cpu"``)."""
+    if device is None or torch.device(device) == torch.device("cuda"):
+        resolve_device(device)
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        devs = [torch.device(device)]
+    return Mesh.of(devs, (len(devs),), (axis_name,))
+
+
+def _pad_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def generate_sharded(plan: GenPlan, *, mesh: Optional[Mesh] = None,
+                     axis_name: str = "streams",
+                     axis_names: Optional[Tuple[str, ...]] = None,
+                     backend: Optional[str] = None,
+                     block_t: int = DEFAULT_BLOCK_T) -> torch.Tensor:
+    """(T, S) block computed with the stream axis split over ``mesh``.
+
+    The paper's SOU instance scaling: the root state (x0, ctr) is shared
+    and each shard derives its own column slice by counter addressing, so
+    the result equals ``generate`` bit for bit.  The stream axis is split
+    over the product of the mesh axes ``axis_names`` (default
+    ``(axis_name,)``); shard (i, j) of an (H, D) grid owns the global
+    columns ``[(i*D + j) * S_loc, ...)``.  S is padded to a multiple of
+    the shard count with zero leaf offsets and sliced back.  Each shard is
+    one ``generate`` of its columns on its own device (the backend chosen
+    by that device unless ``backend`` is given); faithful shards get their
+    slice of the global lane table, so substream identity follows the
+    global column.  The shards are gathered with ``torch.cat`` on the
+    mesh's first device.  With no mesh, the default mesh spans the plan's
+    device type.
+
+    Example:
+        >>> from repro_torch.core import engine
+        >>> plan = engine.make_plan(seed=7, num_streams=6, num_steps=8,
+        ...                         device="cpu")
+        >>> mesh = engine.Mesh.of(["cpu"] * 4, (4,), ("streams",))
+        >>> out = engine.generate_sharded(plan, mesh=mesh)
+        >>> bool((out == engine.generate(plan)).all())
+        True
+    """
+    if axis_names is None:
+        axis_names = (axis_name,)
+    axes = tuple(axis_names)
+    if mesh is None:
+        if axes != (axis_name,):
+            raise ValueError("axis_names requires an explicit mesh")
+        mesh = default_mesh(axis_name, device=plan.device.type)
+    for ax in axes:
+        if ax not in mesh.axis_names:
+            raise ValueError(f"mesh has no axis {ax!r}; has {mesh.axis_names}")
+    _validate_plan(plan)
+    devices = mesh.shard_devices(axes)
+    n_dev = len(devices)
+    T, S = plan.shape
+    Sp = _pad_to(S, n_dev)
+    S_loc = Sp // n_dev
+    pad = Sp - S
+    h = tuple(torch.cat([v, v.new_zeros(pad)]) if pad else v for v in plan.h)
+    outs = []
+    for k, dev in enumerate(devices):
+        cols = slice(k * S_loc, (k + 1) * S_loc)
+        shard = dataclasses.replace(
+            plan, h=(h[0][cols].to(dev), h[1][cols].to(dev)))
+        lanes = None
+        if plan.mode == "faithful":
+            from repro_torch.kernels import thundering_block as _tb
+            lanes = _tb.lane_states(Sp, dev)[:, cols].contiguous()
+        outs.append(generate(shard, backend=backend, block_t=block_t,
+                             lanes=lanes))
+    dst = mesh.devices.flat[0]
+    return torch.cat([o.to(dst) for o in outs], dim=1)[:, :S]

@@ -101,3 +101,9 @@ def xsh_rr(state: U64Pair) -> torch.Tensor:
     xorshifted = u64.shr64(x, 27)[1]
     rot = state[0] >> 27
     return u64.ror32(xorshifted, rot)
+
+
+def truncate_hi(state: U64Pair) -> torch.Tensor:
+    """Plain truncation output (Eq. 4), the un-permuted baseline: the high
+    32 bits of the state."""
+    return state[0]

@@ -122,6 +122,11 @@ def parse(spec: str) -> SamplerSpec:
     raise ValueError(f"unknown sampler {spec!r}; grammar: {SPEC_GRAMMAR}")
 
 
+#: Spec kinds whose outputs are float-coded (see result_dtype).
+DISTRIBUTION_KINDS = ("exponential", "poisson", "gamma", "categorical",
+                      "gumbel")
+
+
 def result_dtype(spec: SamplerSpec, out_dtype: str = "float32"
                  ) -> torch.dtype:
     """The torch dtype a sampler stage emits."""
@@ -159,6 +164,15 @@ def ctr_bits(root: U64Pair, ctr: U64Pair, h: U64Pair,
 # ---------------------------------------------------------------------------
 # Output-stage transforms on u32 limb tensors
 # ---------------------------------------------------------------------------
+
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every subnormal value replaced by a zero of its sign:
+    the reference's float arithmetic on XLA:CPU reads and writes
+    subnormals so (denormals-are-zero, flush-to-zero).  For float32 and
+    bfloat16 tensors."""
+    sub = (x != 0) & (x.abs() < torch.finfo(x.dtype).tiny)
+    return torch.where(sub, x * 0, x)
+
 
 def uniform_from_bits(bits: torch.Tensor, dtype=torch.float32
                       ) -> torch.Tensor:

@@ -108,14 +108,51 @@ def uniform(stream: ThunderStream, shape=(), dtype=torch.float32,
     return (minval + u * (maxval - minval)).to(dtype)
 
 
+#: XLA's single-precision inverse-erf polynomial (``ErfInv32``): the
+#: coefficients for w < 5 and for w >= 5, highest degree first.
+_ERFINV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                  -4.39150654e-06, 0.00021858087, -0.00125372503,
+                  -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                  -0.00367342844, 0.00573950773, -0.0076224613,
+                  0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv32(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function, the reference's ``lax.erf_inv``.
+
+    XLA's ``ErfInv32`` in float32 tensor ops: w = -log1p(-x*x), shifted
+    to w - 2.5 below 5 and sqrt(w) - 3 above, a degree-8 Horner
+    polynomial in w, times x.  Each Horner step is a separate multiply and
+    add, so no fused multiply-add can be contracted on any device.  For
+    |x| < 1 only (the callers clamp); torch's own ``erfinv`` is more
+    accurate near +-1 and up to ~90 ULP away from this form there.
+    """
+    x = x.to(torch.float32)
+    w = torch.neg(torch.log1p(torch.neg(torch.mul(x, x))))
+    lt = w < 5.0
+    w = torch.where(lt, torch.sub(w, 2.5), torch.sub(torch.sqrt(w), 3.0))
+
+    def coef(i: int) -> torch.Tensor:
+        return torch.where(lt, torch.tensor(_ERFINV_W_LT_5[i], dtype=x.dtype,
+                                            device=x.device),
+                           torch.tensor(_ERFINV_W_GE_5[i], dtype=x.dtype,
+                                        device=x.device))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_W_LT_5)):
+        p = torch.add(coef(i), torch.mul(p, w))
+    return torch.mul(p, x)
+
+
 def normal(stream: ThunderStream, shape=(), dtype=torch.float32
            ) -> torch.Tensor:
-    """Standard normal via inverse-erf of U(-1, 1)."""
+    """Standard normal via inverse-erf of U(-1, 1) (``erf_inv32``)."""
     u = uniform(stream, shape, torch.float32, -1.0, 1.0)
     tiny = np.float32(1e-7)
     u = torch.clamp(u, float(np.float32(-1.0) + tiny),
                     float(np.float32(1.0) - tiny))
-    return (float(np.sqrt(np.float32(2.0))) * torch.erfinv(u)).to(dtype)
+    return (float(np.sqrt(np.float32(2.0))) * erf_inv32(u)).to(dtype)
 
 
 def bernoulli(stream: ThunderStream, p, shape=()) -> torch.Tensor:

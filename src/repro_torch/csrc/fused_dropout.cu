@@ -43,6 +43,14 @@
 //     +-inf and the overflow to inf agree bit for bit, and a NaN comes out
 //     as the same canonical NaN (the recorded digests hold every 16-bit
 //     pattern).
+//   * Subnormal inputs of bfloat16 and float32 are read as zeros of their
+//     sign (denormals-are-zero), as the reference's XLA computation reads
+//     them.  float32 multiplies with mul.rn.ftz.f32, which flushes its
+//     inputs (its outputs never are subnormal: scale >= 1).  bf16x2 has no
+//     .ftz form, so a pair first clears the significand of each half below
+//     the smallest normal (set.geu.u32.bf16x2 on |w|, one LOP3 for |w| and
+//     one to apply the mask: two INT32 instructions a word).  float16
+//     widens to float32 normals in the reference and keeps its subnormals.
 //   * The whole runs of a thread are counted on the host (no 64-bit bound
 //     test per run) and read and written as 16-byte loads and stores where
 //     x and y are 16-byte aligned; a misaligned x or y and the ragged tail
@@ -70,11 +78,19 @@ struct FdSteps {
   u64 z_step;  // z' = z + z_step from run to run
 };
 
+// a * b rounded once, a subnormal a or b read as a zero of its sign.
+__device__ __forceinline__ float fd_mul_ftz(float a, float b) {
+  float d;
+  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+
 // x * scale rounded once to x's type: a product of two values of 8- or
-// 11-bit significand is exact in float32.
-__device__ __forceinline__ float fd_scaled(float v, float s) { return v * s; }
+// 11-bit significand is exact in float32.  bfloat16 and float32 read a
+// subnormal x as a zero of its sign.
+__device__ __forceinline__ float fd_scaled(float v, float s) { return fd_mul_ftz(v, s); }
 __device__ __forceinline__ __nv_bfloat16 fd_scaled(__nv_bfloat16 v, float s) {
-  return __float2bfloat16_rn(__bfloat162float(v) * s);
+  return __float2bfloat16_rn(fd_mul_ftz(__bfloat162float(v), s));
 }
 __device__ __forceinline__ __half fd_scaled(__half v, float s) {
   return __float2half_rn(__half2float(v) * s);
@@ -94,7 +110,12 @@ template <typename T>
 __device__ __forceinline__ u32 fd_mul2(u32 a, u32 s);
 template <>
 __device__ __forceinline__ u32 fd_mul2<__nv_bfloat16>(u32 a, u32 s) {
-  u32 d;
+  // each half below the smallest normal (0x0080) keeps only its sign;
+  // set.geu is true for a NaN, whose bits stay
+  u32 keep, d;
+  asm("set.geu.u32.bf16x2 %0, %1, %2;"
+      : "=r"(keep) : "r"(a & 0x7FFF7FFFu), "r"(0x00800080u));
+  a &= keep | 0x80008000u;
   asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(s));
   return d;
 }
@@ -115,7 +136,8 @@ __device__ __forceinline__ u32 fd_word(u32 w, const u32* b, u32 thresh,
     if (!(b[1] < thresh)) r &= 0x0000FFFFu;
     return r;
   } else {
-    return b[0] < thresh ? __float_as_uint(__uint_as_float(w) * scale) : 0u;
+    return b[0] < thresh ? __float_as_uint(fd_mul_ftz(__uint_as_float(w), scale))
+                         : 0u;
   }
 }
 

@@ -84,8 +84,14 @@ def gumbel_scores(bits: torch.Tensor, logits: torch.Tensor,
     torch rounds the product before the add, as the reference's
     ``fma_guard`` makes XLA do and as kernel F does under ``-fmad=false``.
     """
-    g = sampler_mod.gumbel_from_bits(bits)
-    return logits * float(inv_temp) + g
+    return scaled_logits(logits, inv_temp) + sampler_mod.gumbel_from_bits(bits)
+
+
+def scaled_logits(logits: torch.Tensor, inv_temp: float) -> torch.Tensor:
+    """``f32(logits * inv_temp)`` with subnormal inputs and results read
+    as zeros of their sign, as the reference computes it on XLA:CPU."""
+    flush = sampler_mod.flush_subnormal
+    return flush(flush(logits) * float(inv_temp))
 
 
 def argmax_first(scores: torch.Tensor) -> torch.Tensor:
@@ -107,8 +113,11 @@ def _masked(scores: torch.Tensor, logits: torch.Tensor,
             thresh: torch.Tensor) -> torch.Tensor:
     """Top-k mask: tokens whose LOGIT is below the per-sequence k-th
     largest logit can never win (-inf score).  Thresholding on raw logits
-    keeps the kept set independent of the noise."""
-    return torch.where(logits >= thresh, scores,
+    keeps the kept set independent of the noise.  A subnormal logit or
+    threshold compares as a zero of its sign, as in the reference (so
+    every subnormal of a column ties with zero at a threshold of zero)."""
+    flush = sampler_mod.flush_subnormal
+    return torch.where(flush(logits) >= flush(thresh), scores,
                        torch.full_like(scores, _NEG_INF))
 
 
@@ -272,5 +281,5 @@ def twopass_argmax(logits_t: torch.Tensor, noise: torch.Tensor,
     ``logits_t`` is (V, B); the sampler passes a transposed view.
     """
     logits_t = logits_t.to(torch.float32)
-    score = logits_t * float(inv_temp) + noise
+    score = scaled_logits(logits_t, inv_temp) + noise
     return argmax_first(_masked(score, logits_t, thresh.reshape(1, -1)))

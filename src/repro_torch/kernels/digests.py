@@ -15,7 +15,10 @@ being seeded normals at four shapes (one of them a view that starts one
 element past a 16-byte line) and one input per dtype of special values
 (every bit pattern of a 16-bit dtype; for float32, random bit patterns
 with signed zeros, infinities, the extreme subnormals and the largest
-finite value), once without and once with NaNs.
+finite value), once without and once with NaNs.  The 24 bfloat16 and
+float32 cases of the special inputs were recorded again when kernel C
+began to read subnormal inputs as zeros, as the reference does; the other
+84 kept their first values.
 
 On a CPU the plain versions run instead: their integer and threshold
 stages give the recorded bytes, their log / trig stages differ by ULPs;
@@ -145,18 +148,24 @@ def _special_bits(dtype: str, with_nan: bool) -> np.ndarray:
     return bits
 
 
+def special_values(dtype: str, with_nan: bool = False) -> torch.Tensor:
+    """The 65536 special-value patterns of ``_special_bits`` as a 1-d CPU
+    tensor of ``dtype``."""
+    bits = _special_bits(dtype, with_nan)
+    if dtype == "float32":
+        host = torch.from_numpy(bits.astype(np.uint32).view(np.int32))
+    else:
+        host = torch.from_numpy(bits.astype(np.uint16).view(np.int16))
+    return host.view(getattr(torch, dtype))
+
+
 def dropout_input(dtype: str, name: str, device=None) -> torch.Tensor:
     """Input ``name`` of kernel C's cases in ``dtype`` on ``device``,
     made from a numpy seed (the same values on every device)."""
     shape = DROPOUT_INPUTS[name]
     t_dtype = getattr(torch, dtype)
     if name.startswith("special"):
-        bits = _special_bits(dtype, name.endswith("nan"))
-        if dtype == "float32":
-            host = torch.from_numpy(bits.astype(np.uint32).view(np.int32))
-        else:
-            host = torch.from_numpy(bits.astype(np.uint16).view(np.int16))
-        host = host.view(t_dtype).reshape(shape)
+        host = special_values(dtype, name.endswith("nan")).reshape(shape)
     else:
         rng = np.random.default_rng(SEED + sum(shape))
         host = torch.from_numpy(rng.standard_normal(shape)
@@ -167,6 +176,19 @@ def dropout_input(dtype: str, name: str, device=None) -> torch.Tensor:
         flat[1:].copy_(host.reshape(-1))
         return flat[1:].view(shape)
     return host.to(device)
+
+
+def special_layouts(dtype: str, device=None) -> Iterator[Tuple[str, torch.Tensor]]:
+    """The NaN-free special values in the two layouts that take kernel C's
+    per-element epilogue: a (256, 256) view 2 bytes or 4 bytes past a
+    16-byte line, and an aligned (3, 21845) block whose last run is
+    ragged."""
+    host = special_values(dtype)
+    device = engine.resolve_device(device)
+    flat = torch.empty(host.numel() + 1, dtype=host.dtype, device=device)
+    flat[1:].copy_(host)
+    yield "misaligned", flat[1:].view(256, 256)
+    yield "ragged", host[:3 * 21845].to(device).view(3, 21845)
 
 
 def dropout_cases(names=tuple(DROPOUT_INPUTS)) -> Iterator[Tuple[str, tuple]]:
@@ -514,29 +536,29 @@ DROPOUT_RECORDED: Dict[str, str] = {
     "fused_dropout bfloat16 8x128 rate=1e-09 ctr=4294979641":
         "0d28ed410bf4961bb8afe210ba0d0f84a4d0a62672aff32a50c7160cc682b045",
     "fused_dropout bfloat16 special rate=0.1 ctr=0":
-        "c88d2772a4d03b2a1f36efa156138965d0861b9063b15965424df24c5e8edc83",
+        "0c99160d35011063ae532875e680571cd93d0808f876576836f2dbd242420d1c",
     "fused_dropout bfloat16 special rate=0.1 ctr=4294979641":
-        "a9017d367341a02615bfaa63f1ba655d990d5a9e2dac63c1117dce171dc83d9b",
+        "7845b9ca753f1655e164dd2597ef988e2c2cb7a2124371b40016f62f92a5103c",
     "fused_dropout bfloat16 special rate=0.5 ctr=0":
-        "974050f972d02e607e320db7065a606944c36aba4dead7cecdc7e2fb985e9bcc",
+        "bf93b437bcd000137c17852f14605a6e999e1c215da762cbef2d82b6d07ad1d0",
     "fused_dropout bfloat16 special rate=0.5 ctr=4294979641":
-        "c1f2b57e9088f19fe5c4083d1e3fae15693f5188c7023d3c94fd1fa1b82487cf",
+        "4260f1ae4ca3714c2520f2754036bba75b551582711261b878d10083b7e09ba9",
     "fused_dropout bfloat16 special rate=1e-09 ctr=0":
-        "2b539506bb905da32274527274f62dbd498233ba755b3f2cd2d7f64ca3a99265",
+        "99f5f1f7e363aec71880ee34f6522bb0c0a6fced61625f2d62d7fdbd45dfd421",
     "fused_dropout bfloat16 special rate=1e-09 ctr=4294979641":
-        "2b539506bb905da32274527274f62dbd498233ba755b3f2cd2d7f64ca3a99265",
+        "99f5f1f7e363aec71880ee34f6522bb0c0a6fced61625f2d62d7fdbd45dfd421",
     "fused_dropout bfloat16 special+nan rate=0.1 ctr=0":
-        "440621f8dedb129f54e82e8cc47301282713c55d3a1cce38fec00d1d3297d8dc",
+        "a3ce56b32eac51a0e87f31d4a0788857f2e5bc1245cdecfca787a1d1b5ce5a5f",
     "fused_dropout bfloat16 special+nan rate=0.1 ctr=4294979641":
-        "10e86a43105ba6d5298dd35a8387bafba3ff2831bf5b015430085b9169fad098",
+        "de8058c2ccd996898504e56a54110e095e04ef4930dcf02b1659f9d6ca500410",
     "fused_dropout bfloat16 special+nan rate=0.5 ctr=0":
-        "59e67ec3bfaa88817359d671bd96ef547a7c4d2c9abfa8ad8fedf13695f20834",
+        "1208bb235801d2909b01055071775f430638d1186f724e525d3cfe8b4984b874",
     "fused_dropout bfloat16 special+nan rate=0.5 ctr=4294979641":
-        "080fefd9cb04e46b69328094b690722f1293056dc63a0ebad022bd3afb5b15be",
+        "d1ce2db0acbf017b392e9224ae2f0983dd6c7635ccfd7486d7ad46c860e7c7e7",
     "fused_dropout bfloat16 special+nan rate=1e-09 ctr=0":
-        "71d58afa44afd4dfc005e962d9dbe6e500bccdc53249e8d8fa677bf9d556fc48",
+        "255a45f37fa0484602ae604e9f21e7cd7d6ac73bd1e0b159a21fabf7176ce94e",
     "fused_dropout bfloat16 special+nan rate=1e-09 ctr=4294979641":
-        "71d58afa44afd4dfc005e962d9dbe6e500bccdc53249e8d8fa677bf9d556fc48",
+        "255a45f37fa0484602ae604e9f21e7cd7d6ac73bd1e0b159a21fabf7176ce94e",
     "fused_dropout float16 3x1001 rate=0.1 ctr=0":
         "58e1ab6765944ec46168e682fd175fb6653b9db1cb4be1f038fb63e09d3caf79",
     "fused_dropout float16 3x1001 rate=0.1 ctr=4294979641":
@@ -658,29 +680,29 @@ DROPOUT_RECORDED: Dict[str, str] = {
     "fused_dropout float32 8x128 rate=1e-09 ctr=4294979641":
         "7cf2c9f0d457a7fa459b7d712cce00ffa3c6e9a76895a049fa7b1a561ae14593",
     "fused_dropout float32 special rate=0.1 ctr=0":
-        "2a3b839039ac70b0bcc851adf759f7670524218bcfa24188f8cf43d526de20fb",
+        "84b1fd06da071faef1386623b71edd9643ad7b4481d41620bd5f3ef1a9a537fe",
     "fused_dropout float32 special rate=0.1 ctr=4294979641":
-        "5be3aee886b38fbe8fbe821670421b4b4ac526e6f129859a8d2ce21ccd6939a2",
+        "afc9efb5f54ece2a65fd223cd64071aa8d79ff2ae12936f91abae1b407c2c928",
     "fused_dropout float32 special rate=0.5 ctr=0":
-        "1ade786e4074ba18ee2bd2766172828c399d665261518ed32495db46b604912c",
+        "8507b7b175c46a25c2dca0f51e8e45f59ee7702481c1d7b149e9109dd0a23e63",
     "fused_dropout float32 special rate=0.5 ctr=4294979641":
-        "078ce33010822ca22bd3a8200407c9a43cc3dd09148b2ec1945431916599c297",
+        "6a7b611ceb15ed2586dc183f0222b92bf4729125622a0d41ce4c859c5a1d971f",
     "fused_dropout float32 special rate=1e-09 ctr=0":
-        "d14f533bd7c76509a62d51fe709171ae94cef5c553a7408f2cbba08fbc85b9b0",
+        "9e11b67d85a56ce30329fca5ecdba7da17d11af228883f75e3b935f00bd4bd88",
     "fused_dropout float32 special rate=1e-09 ctr=4294979641":
-        "d14f533bd7c76509a62d51fe709171ae94cef5c553a7408f2cbba08fbc85b9b0",
+        "9e11b67d85a56ce30329fca5ecdba7da17d11af228883f75e3b935f00bd4bd88",
     "fused_dropout float32 special+nan rate=0.1 ctr=0":
-        "f7fb1661fabc4d1361c1540bf9f758d0cbab52c888f8738eea3085da327de413",
+        "1f1ce0a5db4ddc2f65effd8648a9f9adca13e5bf8ac357da1944a4d1772eaee1",
     "fused_dropout float32 special+nan rate=0.1 ctr=4294979641":
-        "d52b4efeeeec1ca7791feba53bad938b605a0ca6e048ca4927d0ac6794774e6a",
+        "0aab21dbec920242eafa25571598fde7a485ca3812cb43698330389c57eb3dde",
     "fused_dropout float32 special+nan rate=0.5 ctr=0":
-        "15f84adba8d3e94d09b5cec5b33113bbc397aa4ec2a343292f2634557f83d2c4",
+        "8a08cc51651cb9b869032cb440e392c57e434e765c84a5ffe4a46a0eb8308845",
     "fused_dropout float32 special+nan rate=0.5 ctr=4294979641":
-        "1c60276954e0ca5e3a5e8aa49dee9802b9aca8e25e3bb82cf12fd7faf2f14bd0",
+        "fbd8b933d20228a2ace73bc462d8c7bad2178958c5487ad1791839c2f8b23251",
     "fused_dropout float32 special+nan rate=1e-09 ctr=0":
-        "ae4769a93ff2a07b4d7366da9bd09552bdd4b097a45ed5d782acb1179a60dfed",
+        "eba169b1afb6f05cbe85f53867d44c22175dbb0123d73a591a478047752a0ef0",
     "fused_dropout float32 special+nan rate=1e-09 ctr=4294979641":
-        "ae4769a93ff2a07b4d7366da9bd09552bdd4b097a45ed5d782acb1179a60dfed",
+        "eba169b1afb6f05cbe85f53867d44c22175dbb0123d73a591a478047752a0ef0",
 }
 
 

@@ -80,12 +80,19 @@ def fused_dropout(x: torch.Tensor, h: int, x0: int, ctr0: int,
                   rate: float) -> torch.Tensor:
     """Reference fused dropout: element p keeps iff its mask bits are below
     round((1 - rate) 2^32); kept values are x * scale, scale being x's
-    dtype's rounding of 1 / (1 - rate)."""
+    dtype's rounding of 1 / (1 - rate).
+
+    bfloat16 and float32 subnormal inputs become a zero of their sign
+    before the multiply, as the reference's XLA:CPU computation treats
+    denormals as zero; float16 widens to float32 normals and keeps them.
+    """
     bits = dropout_mask_bits(h, x0, ctr0, x.numel(), x.device)
     if rate > 0:
         keep = bits < sampler.bernoulli_threshold(1.0 - rate)
     else:
         keep = torch.ones_like(bits, dtype=torch.bool)
+    if x.dtype in (torch.bfloat16, torch.float32):
+        x = sampler.flush_subnormal(x)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
     return torch.where(keep.reshape(x.shape), x * scale, torch.zeros_like(x))
 

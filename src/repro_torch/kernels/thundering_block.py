@@ -200,7 +200,7 @@ def tile_rows(block_t: int, rows: int) -> int:
     return max(2, bt - bt % 2)
 
 
-def _host_lanes(lanes: torch.Tensor) -> np.ndarray:
+def host_lanes(lanes: torch.Tensor) -> np.ndarray:
     """(4, S) 32-bit lane states (int64 limbs or int32 bit patterns, any
     device) -> (S, 4) uint32 on the host."""
     return u64.limbs(lanes.cpu()).numpy().astype(np.uint32).T.copy()
@@ -223,7 +223,7 @@ def thundering_faithful_plain(x0: int, ctr: int, rows: int, h: U64Pair,
     if h[0].is_cuda:
         thundering_faithful_plain.cuda_runs += 1
     n_tiles = -(-rows // block_t)
-    tbl = xorshift.jump_batch(_host_lanes(lanes), ctr & u64.M64)
+    tbl = xorshift.jump_batch(host_lanes(lanes), ctr & u64.M64)
     states = states_tensor(xorshift.states_at(
         tbl, [i * block_t for i in range(n_tiles)]), "cpu").to(h[0].device)
     roots = lcg.root_states_vector(x0, ctr, rows, device=h[0].device)

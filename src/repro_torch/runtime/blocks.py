@@ -195,6 +195,14 @@ class Channel:
 class BlockService:
     """Leased-window block delivery over one seed's MISRN stream space.
 
+    ``mesh`` / ``axis_names`` route every plan-channel window through
+    ``engine.generate_sharded`` (a 1-d or a 2-d ``("hosts", "streams")``
+    fan-out of the columns, the root state shared, no collective): the
+    paper's "add SOU instances" move.  ``axis_names`` defaults to the
+    mesh's own.  Without a mesh, plans go through ``engine.generate`` on
+    ``device`` with the service's backend override (chosen by the device
+    when None); ``device`` also holds the channels' leaf tables.
+
     Example:
         >>> from repro_torch.runtime.blocks import BlockService
         >>> svc = BlockService(seed=11, device="cpu")
@@ -206,9 +214,16 @@ class BlockService:
         [[0, 8]]
     """
 
-    def __init__(self, seed: int = 0, *, backend: Optional[str] = None,
+    def __init__(self, seed: int = 0, *,
+                 mesh: Optional[engine.Mesh] = None,
+                 axis_names: Optional[Tuple[str, ...]] = None,
+                 backend: Optional[str] = None,
                  block_t: int = engine.DEFAULT_BLOCK_T, device=None):
         self.seed = seed
+        self.mesh = mesh
+        self.axis_names = (tuple(axis_names) if axis_names is not None
+                           else (tuple(mesh.axis_names) if mesh is not None
+                                 else None))
         self.backend = backend
         self.block_t = block_t
         self.device = engine.resolve_device(device)
@@ -399,9 +414,21 @@ class BlockService:
                 raise ValueError(f"channel {lease.channel!r} has a custom "
                                  f"window_fn; donation needs a plan channel")
             return ch.window_fn(lease.lo, lease.hi)
+        if retired is not None and self.mesh is not None:
+            raise ValueError("donated windows require mesh=None; sharded "
+                             "delivery manages its own output buffers")
         plan = self._plan(ch, lease.lo, lease.length, sampler, out_dtype)
+        return self._generate(plan, out=retired)
+
+    def _generate(self, plan: engine.GenPlan,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One window: sharded over the mesh, or one ``engine.generate``."""
+        if self.mesh is not None:
+            return engine.generate_sharded(
+                plan, mesh=self.mesh, axis_names=self.axis_names,
+                backend=self.backend, block_t=self.block_t)
         return engine.generate(plan, backend=self.backend,
-                               block_t=self.block_t, out=retired)
+                               block_t=self.block_t, out=out)
 
     def generate_many(self, leases: List[Lease], *,
                       sampler: Optional[str] = None,
@@ -423,6 +450,13 @@ class BlockService:
                     "generate_many needs contiguous equal-length leases of "
                     f"one channel; got [{a.lo},{a.hi}) then [{b.lo},{b.hi}) "
                     f"on {a.channel!r}/{b.channel!r}")
+        if self.mesh is not None:
+            if len(leases) > 1 or retired is not None:
+                raise ValueError("fused/donated window functions require "
+                                 "mesh=None; sharded delivery manages its "
+                                 "own output buffers")
+            return self.generate(leases[0], sampler=sampler,
+                                 out_dtype=out_dtype)[None]
         plan = self._plan(ch, leases[0].lo, L, sampler, out_dtype)
         return engine.generate_windows(plan, len(leases),
                                        backend=self.backend,
@@ -435,8 +469,7 @@ class BlockService:
         ch = self._channels[name]
         if ch.window_fn is not None:
             return ch.window_fn(lo, lo + length)
-        return engine.generate(self._plan(ch, lo, length, sampler, out_dtype),
-                               backend=self.backend, block_t=self.block_t)
+        return self._generate(self._plan(ch, lo, length, sampler, out_dtype))
 
     def take(self, name: str, length: int, **kw) -> Any:
         """lease + generate + commit in one call (synchronous consumers)."""
@@ -506,6 +539,10 @@ class BlockProducer:
         fuse = int(fuse)
         if fuse < 1:
             raise ValueError(f"fuse must be >= 1, got {fuse}")
+        if (donate or fuse > 1) and service.mesh is not None:
+            raise ValueError("donate/fuse producers require a mesh-less "
+                             "service; sharded delivery manages its own "
+                             "buffers")
         self._service = service
         self._name = name
         self._block_len = block_len

@@ -47,7 +47,8 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core.u64 import M64
 from repro_torch.runtime import blocks
-from repro_torch.service.frontend import Assignment, slice_response
+from repro_torch.service.frontend import (Assignment, host_block,
+                                          slice_response)
 
 try:                               # POSIX only; fencing degrades to a
     import fcntl                   # no-op where flock does not exist
@@ -342,9 +343,7 @@ def replay_entry(e: Dict[str, Any], *, seed: int,
         x0=x0, h=h, num_steps=int(e["rows"]), ctr=int(e["lo"]) & M64,
         mode="ctr", deco=e.get("deco", "splitmix64"), sampler=e["sampler"],
         out_dtype=e["dtype"])
-    block = engine.generate(plan, backend=backend).cpu()
-    if block.dtype != torch.bfloat16:
-        block = block.numpy()
+    block = host_block(engine.generate(plan, backend=backend))
     shape = tuple(e["shape"])
     n = 1
     for d in shape:

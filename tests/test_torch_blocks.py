@@ -221,3 +221,60 @@ def test_service_is_thread_safe_under_concurrent_leases():
         t.join(timeout=30)
     assert not any(t.is_alive() for t in threads)
     assert sorted(got) == list(range(400))
+
+
+# ---------------------------------------------------------------------------
+# BlockService(mesh=): plan-channel windows through generate_sharded
+# ---------------------------------------------------------------------------
+
+def _mesh_svc(shape=(3,), names=("streams",), **kw):
+    from repro_torch.core import engine
+    mesh = engine.Mesh.of([CPU] * int(np.prod(shape)), shape, names)
+    return BlockService(seed=5, mesh=mesh, device=CPU, **kw)
+
+
+@pytest.mark.parametrize("open_kw", [{}, {"mode": "faithful"},
+                                     {"sampler": "uniform",
+                                      "out_dtype": "bfloat16"},
+                                     {"deco": "fmix32"}])
+@pytest.mark.parametrize("shape,names", [((3,), ("streams",)),
+                                         ((2, 2), ("hosts", "streams"))])
+def test_mesh_service_windows_match_reference(shape, names, open_kw):
+    js = j_blocks.BlockService(seed=5)
+    js.open("c", **{"num_streams": 7, **open_kw})
+    ts = _mesh_svc(shape, names)
+    assert ts.axis_names == names
+    ts.open("c", **{"num_streams": 7, **open_kw})
+    for length in (4, 6, 2, 8):
+        got, want = ts.take("c", length), js.take("c", length)
+        if got.dtype == torch.bfloat16:
+            got = got.view(torch.int16).numpy().view(np.uint16)
+            want = np.asarray(want).view(np.uint16)
+        assert np.array_equal(np.asarray(got), np.asarray(want))
+    assert ts.ledger_state() == js.ledger_state()
+    lease = ts.lease("c", 4)
+    one = ts.generate_many([lease])
+    assert one.shape[0] == 1
+    assert torch.equal(one[0].view(torch.uint8),
+                       ts.regenerate("c", lease.lo, 4).view(torch.uint8))
+
+
+def test_mesh_service_rejects_fused_and_donated_windows():
+    svc = _mesh_svc()
+    svc.open("c", num_streams=5)
+    for kw in ({"fuse": 2}, {"donate": True}):
+        with pytest.raises(ValueError, match="mesh-less"):
+            svc.producer("c", 4, **kw)
+    leases = svc.lease_many("c", 4, 2)
+    with pytest.raises(ValueError, match="mesh=None"):
+        svc.generate_many(leases)
+    with pytest.raises(ValueError, match="mesh=None"):
+        svc.generate(leases[0], retired=torch.empty(4, 5,
+                                                    dtype=torch.uint32))
+    with svc.producer("c", 4, count=2, start=8) as prod:
+        blocks = [blk for _, blk in prod]
+    assert [tuple(b.shape) for b in blocks] == [(4, 5), (4, 5)]
+    js = j_blocks.BlockService(seed=5, mesh=None)
+    js.open("c", num_streams=5)
+    assert np.array_equal(blocks[1].numpy(),
+                          np.asarray(js.regenerate("c", 12, 4)))

@@ -308,7 +308,12 @@ PORT_MODULES = [
     "repro_torch.inference.kernels",
     "repro_torch.inference.kernels.gumbel_argmax",
     "repro_torch.inference.sampling", "repro_torch.inference.slots",
-    "repro_torch.inference.scheduler", "repro_torch.inference.harness"]
+    "repro_torch.inference.scheduler", "repro_torch.inference.harness",
+    "repro_torch.core.statistics", "repro_torch.core.baselines",
+    "repro_torch.quality", "repro_torch.quality.crush",
+    "repro_torch.quality.cross", "repro_torch.quality.pit",
+    "repro_torch.quality.battery", "repro_torch.quality.render",
+    "repro_torch.quality.__main__"]
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -334,6 +339,17 @@ def test_port_imports_neither_jax_nor_reference():
             "a = [ActiveSeq(slot=0, seq_id='q', tenant_id='q', "
             "tag=s.registry.register('q').tag(0), position=0)]\n"
             "assert s.sample_step(0, torch.zeros(2, 16), a).shape == (2,)\n"
+            "from repro_torch.core import engine\n"
+            "mesh = engine.Mesh.of(['cpu'] * 3, (3,), ('streams',))\n"
+            "ms = BlockService(seed=1, mesh=mesh, device='cpu')\n"
+            "ms.open('m', num_streams=5, mode='faithful'); ms.take('m', 4)\n"
+            "from repro_torch.service import Coalescer, RandRequest, "
+            "TenantRegistry\n"
+            "Coalescer(svc, TenantRegistry()).flush("
+            "[RandRequest('t', (3,), rid='r')])\n"
+            "from repro_torch.quality import run_battery\n"
+            "run_battery('tiny', device='cpu', generators=["
+            "'thundering/ctr/service', 'ablation/raw_lcg_pit'])\n"
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"
             "print('isolated')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

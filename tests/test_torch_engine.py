@@ -310,3 +310,117 @@ def test_root_and_ctr_rows_match_reference():
         tuple(jnp.uint32(v) for v in ((off >> 32), off & 0xFFFFFFFF)), 9)
     for got, want in zip((*roots, *rows), (*j_roots, *j_rows)):
         assert np.array_equal(got.numpy(), np.asarray(want).astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# stream.normal: XLA's ErfInv32 in float32 tensor ops
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [7, 123])
+def test_stream_normal_large_draw_within_slack_of_reference(seed):
+    """2**16 normals: enough draws with |u| > 0.999, where torch's own
+    ``erfinv`` was up to 91 ULP from the reference's ``lax.erf_inv``."""
+    js, ts = _jstream(seed), _tstream(seed)
+    n = 2 ** 16
+    got = stream.normal(ts, (n,))
+    want = torch.from_numpy(np.array(j_stream.normal(js, (n,))))
+    err = sampler.ulp_error(got, want)
+    print(f"stream.normal seed {seed}: max ulp_error {float(err.max())}, "
+          f"bit-equal {float((err == 0).float().mean()):.4f}")
+    assert float(err.max()) <= 8.0
+    assert got.dtype == torch.float32 and got.shape == (n,)
+
+
+def test_erf_inv32_sweep_near_one_within_slack_of_reference():
+    import jax
+    edge = np.float32(1.0) - np.float32(1e-7)
+    near = edge - np.arange(1 << 14, dtype=np.float32) * np.float32(6e-8)
+    u = np.concatenate([near, -near, np.linspace(
+        -edge, edge, 1 << 16, dtype=np.float32)]).astype(np.float32)
+    got = stream.erf_inv32(torch.from_numpy(u))
+    want = torch.from_numpy(np.array(jax.lax.erf_inv(jnp.asarray(u))))
+    err = sampler.ulp_error(got, want)
+    print(f"erf_inv32 sweep: max ulp_error {float(err.max())}")
+    assert float(err.max()) <= 8.0
+    assert bool((torch.sign(got) == torch.sign(torch.from_numpy(u))).all())
+
+
+# ---------------------------------------------------------------------------
+# generate_sharded: columns split over a mesh of devices
+# ---------------------------------------------------------------------------
+
+MESHES = [((1,), ("streams",)), ((2,), ("streams",)), ((3,), ("streams",)),
+          ((2, 2), ("hosts", "streams"))]
+
+
+def _cpu_mesh(shape, names):
+    return engine.Mesh.of([CPU] * int(np.prod(shape)), shape, names)
+
+
+@pytest.mark.parametrize("S", [7, 24, 130])
+@pytest.mark.parametrize("mode,deco", MODE_DECOS)
+@pytest.mark.parametrize("mesh_shape,names", MESHES,
+                         ids=["1", "2", "3", "2x2"])
+def test_generate_sharded_equals_reference(mesh_shape, names, mode, deco, S):
+    """Faithful at S not divisible by the shard count is the case where a
+    shard built from its own S_loc lanes would draw the wrong bits."""
+    jp, tp = _plans(9 if mode == "ctr" else 10, S, 2 ** 32 + 7, mode, deco)
+    mesh = _cpu_mesh(mesh_shape, names)
+    got = engine.generate_sharded(tp, mesh=mesh, axis_names=names)
+    assert np.array_equal(_np(got), _jnp(j_engine.generate(jp, backend="xla")))
+
+
+@pytest.mark.parametrize("spec,dtype", [("uniform", "bfloat16"),
+                                        ("normal", "float32"),
+                                        ("poisson(3.5)", "float32")])
+def test_generate_sharded_float_stages_equal_generate(spec, dtype):
+    _, tp = _plans(8, 11, 5, "faithful", "splitmix64", spec, dtype)
+    mesh = _cpu_mesh((3,), ("streams",))
+    assert np.array_equal(_np(engine.generate_sharded(tp, mesh=mesh)),
+                          _np(engine.generate(tp)))
+
+
+def test_generate_sharded_replicated_axis_and_default_mesh():
+    _, tp = _plans(6, 13, 0, "ctr", "splitmix64")
+    want = _np(engine.generate(tp))
+    # the "hosts" axis is not named: its shards are replicas
+    mesh = _cpu_mesh((2, 3), ("hosts", "streams"))
+    assert np.array_equal(_np(engine.generate_sharded(tp, mesh=mesh)), want)
+    assert mesh.shard_devices(("streams",)) == [torch.device(CPU)] * 3
+    assert np.array_equal(_np(engine.generate_sharded(tp)), want)
+    assert engine.default_mesh(device=CPU).shape == {"streams": 1}
+
+
+def test_generate_sharded_axis_validation_matches_reference():
+    import jax
+    from jax.sharding import Mesh as JMesh
+    jp, tp = _plans(4, 6, 0, "ctr", "splitmix64")
+    jmesh = JMesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                  ("hosts", "streams"))
+    tmesh = _cpu_mesh((1, 1), ("hosts", "streams"))
+    for kw in (dict(axis_names=("hosts", "model")), dict(axis_name="data")):
+        with pytest.raises(ValueError) as j_err:
+            j_engine.generate_sharded(jp, mesh=jmesh, **kw)
+        with pytest.raises(ValueError) as t_err:
+            engine.generate_sharded(tp, mesh=tmesh, **kw)
+        assert str(t_err.value) == str(j_err.value)
+    with pytest.raises(ValueError) as j_err:
+        j_engine.generate_sharded(jp, axis_names=("hosts", "streams"))
+    with pytest.raises(ValueError) as t_err:
+        engine.generate_sharded(tp, axis_names=("hosts", "streams"))
+    assert str(t_err.value) == str(j_err.value) == \
+        "axis_names requires an explicit mesh"
+    with pytest.raises(ValueError, match="axis names"):
+        engine.Mesh.of([CPU, CPU], (2,), ("a", "b"))
+
+
+def test_generate_lane_override_is_a_column_slice_of_the_global_table():
+    _, wide = _plans(8, 12, 2 ** 32 + 7, "faithful", "splitmix64")
+    want = engine.generate(wide)
+    lanes = tb.lane_states(12, torch.device(CPU))[:, 4:9].contiguous()
+    part = dataclasses.replace(wide, h=(wide.h[0][4:9], wide.h[1][4:9]))
+    for backend in ("torch", "cuda"):
+        got = engine.generate(part, backend=backend, lanes=lanes)
+        assert torch.equal(got.view(torch.int32), want[:, 4:9].view(torch.int32))
+    assert not torch.equal(engine.generate(part).view(torch.int32),
+                           want[:, 4:9].view(torch.int32))

@@ -397,3 +397,99 @@ def test_batcher_on_card_fused_equals_twopass(cuda):
     assert ga.fused_argmax_plain.cuda_runs == 0
     cpu = inference.run_offline(cfg, device="cpu")
     assert cpu.result.digest == j["digest"]
+
+
+# ---------------------------------------------------------------------------
+# the repaired faults, the sharded fan-out and the battery on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_dropout_subnormal_inputs_give_the_rerecorded_bytes(cuda,
+                                                                  dtype):
+    """The 24 re-recorded cases: bfloat16 / float32 subnormal inputs read
+    as zeros of their sign; the non-NaN ones equal the plain version."""
+    n = 0
+    for key, (dt, name, rate, ctr) in digests.dropout_cases(
+            ("special", "special+nan")):
+        if dt != dtype:
+            continue
+        x = digests.dropout_input(dt, name, cuda)
+        s = stream.advance(stream.new_stream(digests.SEED, 0, device=cuda),
+                           ctr)
+        y = fd.fused_dropout_2d(x, s.h, s.x0, s.ctr, rate)
+        assert digests.digest(y) == digests.DROPOUT_RECORDED[key]
+        if name == "special":
+            want = fd.fused_dropout_2d(x.cpu(), s.h, s.x0, s.ctr, rate)
+            assert torch.equal(y.cpu().view(torch.uint8),
+                               want.view(torch.uint8))
+        n += 1
+    assert n == 12
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_fused_dropout_per_element_epilogue_on_special_inputs(cuda, dtype):
+    """The special values, subnormals included, through the per-element
+    epilogue (a misaligned view, a ragged last run) equal the plain
+    version bit for bit."""
+    view = torch.int32 if dtype == "float32" else torch.int16
+    s = stream.advance(stream.new_stream(digests.SEED, 0, device=cuda), 3)
+    for layout, x in digests.special_layouts(dtype, cuda):
+        for rate in (0.1, 0.5):
+            got = fd.fused_dropout_2d(x, s.h, s.x0, s.ctr, rate)
+            want = fd.fused_dropout_2d_plain(x, s.h, s.x0, s.ctr, rate)
+            assert torch.equal(got.view(view), want.view(view)), (layout,
+                                                                  rate)
+
+
+def test_stream_normal_card_within_slack_of_cpu(cuda):
+    card = stream.normal(stream.new_stream(42, 0, device=cuda), (2 ** 20,))
+    host = stream.normal(stream.new_stream(42, 0, device="cpu"), (2 ** 20,))
+    assert float(sampler.ulp_error(card.cpu(), host).max()) <= 8.0
+
+
+@pytest.mark.parametrize("mode,deco", [("ctr", "splitmix64"),
+                                       ("ctr", "fmix32"),
+                                       ("faithful", "splitmix64")])
+@pytest.mark.parametrize("S", [130, 2 ** 14 + 1])
+def test_generate_sharded_on_card_equals_generate(cuda, mode, deco, S):
+    plan = engine.make_plan(seed=42, num_streams=S, num_steps=64,
+                            offset=2 ** 32 + 12345, mode=mode, deco=deco,
+                            device=cuda)
+    want = engine.generate(plan)
+    for shape, names in (((3,), ("streams",)), ((2, 2), ("hosts",
+                                                         "streams"))):
+        mesh = engine.Mesh.of([cuda] * int(np.prod(shape)), shape, names)
+        got = engine.generate_sharded(plan, mesh=mesh, axis_names=names)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    split = engine.Mesh.of(["cpu", cuda], (2,), ("streams",))
+    got = engine.generate_sharded(plan, mesh=split)
+    assert got.device == torch.device("cpu")
+    assert torch.equal(got.view(torch.int32), want.cpu().view(torch.int32))
+
+
+def test_battery_cuda_rows_equal_their_torch_twins(cuda):
+    from repro_torch.quality import battery
+    rep = battery.run_battery("tiny", device=cuda)
+    assert rep["ok"]
+    rows = {g["name"]: g for g in rep["generators"]}
+    for name, g in rows.items():
+        if name.endswith("/cuda"):
+            twin = rows[name[:-len("cuda")] + "torch"]
+            assert (g["intra"], g["cross"]) == (twin["intra"], twin["cross"])
+
+
+@pytest.mark.parametrize("top_k,inv_temp", [(0, 1.0), (3, 0.5), (40, 2.0)])
+def test_gumbel_argmax_subnormal_logits_equal_plain(cuda, top_k, inv_temp):
+    pats = np.array([0x00000001, 0x80000001, 0x007FFFFF, 0x807FFFFF, 0x0,
+                     0x80000000, 0x00800000, 0x80800000], np.uint32)
+    bits = pats[np.random.default_rng(3).integers(0, len(pats), (16, 700))]
+    logits = torch.from_numpy(bits.view(np.float32).copy()).to(cuda)
+    x0, h_fam = engine.family_from_seed(9, 0xD0)
+    h = ga.leaf_words([engine.derive_leaf_host(h_fam, t) for t in range(16)],
+                      cuda)
+    th = (torch.topk(logits, top_k, dim=-1).values[:, -1].contiguous()
+          if top_k else torch.full((16,), float("-inf"), device=cuda))
+    got = ga.fused_argmax(logits, h, x0, 977, th, inv_temp=inv_temp)
+    want = ga.fused_argmax_plain(logits.cpu(), h.cpu(), x0, 977, th.cpu(),
+                                 inv_temp=inv_temp)
+    assert torch.equal(got.cpu(), want)

@@ -617,3 +617,29 @@ def test_harness_cli_json_report(capsys):
     rep = json.loads(capsys.readouterr().out)
     assert rep["config"]["top_k"] == 5 and rep["calls_per_step"] == 1.0
     assert rep["device"] == "cpu"
+
+
+@pytest.mark.parametrize("inv_temp,top_k", [(1.0, 0), (0.5, 3), (2.0, 40)])
+def test_subnormal_logits_give_reference_tokens(inv_temp, top_k):
+    """Logits of +-0, subnormals and the smallest normals: the reference
+    reads subnormals as zeros of their sign (XLA:CPU), so at a top-k
+    threshold of a subnormal or zero every subnormal ties with zero.  The
+    port's plain version, two-pass oracle and mask must pick its tokens."""
+    V, B = 256, 32
+    s = _setup(5, V, B)
+    pats = np.array([0x00000001, 0x80000001, 0x007FFFFF, 0x807FFFFF,
+                     0x00400000, 0x80400000, 0x0, 0x80000000, 0x00800000,
+                     0x80800000], np.uint32)
+    rng = np.random.default_rng(11)
+    lt_np = pats[rng.integers(0, len(pats), size=(V, B))].view(np.float32)
+    j_th, t_th = _thresh(lt_np, B, top_k)
+    it = np.float32(inv_temp)
+    want = np.asarray(j_kern.twopass_argmax(jnp.asarray(lt_np), s["noise"],
+                                            j_th, inv_temp=it))
+    noise = torch.from_numpy(np.array(s["noise"]))
+    lt = torch.from_numpy(lt_np.copy())
+    got = t_kern.twopass_argmax(lt, noise, t_th, inv_temp=float(it))
+    assert np.array_equal(got.numpy(), want)
+    fused = t_kern.fused_argmax_plain(lt.T.contiguous(), s["words"], s["x0"],
+                                      s["ctr"], t_th, inv_temp=float(it))
+    assert np.array_equal(fused.numpy(), want)

@@ -9,6 +9,7 @@ classes are bit-equal to the reference's replay, the log-based classes
 within ``sampler.ulp_error`` <= 8 (torch-CPU ``log`` against XLA:CPU's,
 ROADMAP section C).
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -350,3 +351,127 @@ def test_response_digest_takes_numpy_and_torch_alike():
     assert t_audit.response_digest({"r": a}) != \
         t_audit.response_digest({"r": a.reshape(3, 2)})
     json.dumps(t_audit.Journal().ledger_state())
+
+
+# ---------------------------------------------------------------------------
+# Coalescer: the reference's assignments, bytes, journal and stats
+# ---------------------------------------------------------------------------
+
+def test_request_quantization_matches_reference():
+    for n in (1, 7, 8, 9, 100, 2048, 2049, 10 ** 6):
+        for max_rows in (64, t_frontend.DEFAULT_MAX_ROWS):
+            assert t_frontend.request_rows(n, max_rows) == \
+                j_frontend.request_rows(n, max_rows)
+        assert t_frontend._next_pow2(n) == j_frontend._next_pow2(n)
+    assert (t_frontend.DEFAULT_MAX_ROWS, t_frontend._MIN_ROWS,
+            t_frontend.WINDOW_FN_CACHE_SIZE) == (
+        j_frontend.DEFAULT_MAX_ROWS, j_frontend._MIN_ROWS,
+        j_frontend.WINDOW_FN_CACHE_SIZE)
+    r = t_frontend.RandRequest("t", (4, 3), "poisson(3.5)", "bfloat16", "r")
+    j = j_frontend.RandRequest("t", (4, 3), "poisson(3.5)", "bfloat16", "r")
+    assert (r.num_samples, r.klass) == (j.num_samples, j.klass)
+    with pytest.raises(ValueError, match="unknown sampler"):
+        t_frontend.RandRequest("t", (2,), "bad(1)", rid="x").validate()
+    with pytest.raises(ValueError, match="empty"):
+        t_frontend.RandRequest("t", (0,), rid="x").validate()
+    with pytest.raises(ValueError):
+        t_frontend.request_rows(0)
+
+
+#: (tenant, shape, sampler, dtype) of each batch's requests: several
+#: classes, a tenant with two requests in one class, an invalid spec and
+#: a request past its tenant's quota
+BATCH = [("alice", (5,), "bits", "float32"),
+         ("bob", (40, 3), "uniform", "float32"),
+         ("alice", (17,), "uniform", "bfloat16"),
+         ("carol", (9,), "bernoulli(0.3)", "float32"),
+         ("bob", (3,), "poisson(3.5)", "float32"),
+         ("dave", (2,), "bad(1)", "float32"),
+         ("alice", (300,), "bits", "float32"),
+         ("erin", (1000,), "uniform", "float32"),
+         ("carol", (11,), "categorical[0.5,0.5]", "float32")]
+
+
+def _coalescers(tmp_path, cache=2):
+    jj = j_audit.Journal(str(tmp_path / "j.jsonl"))
+    tj = t_audit.Journal(str(tmp_path / "t.jsonl"))
+    jr = j_tenants.TenantRegistry()
+    tr = t_tenants.TenantRegistry()
+    for reg in (jr, tr):
+        reg.register("erin", quota=1500)   # the second batch overruns it
+    jc = j_frontend.Coalescer(j_blocks.BlockService(7), jr, journal=jj,
+                              window_fn_cache_size=cache, max_rows=256)
+    tc = t_frontend.Coalescer(t_blocks.BlockService(7, device=CPU), tr,
+                              journal=tj, window_fn_cache_size=cache,
+                              max_rows=256)
+    return (jc, jj), (tc, tj)
+
+
+def _requests(mod, batch):
+    return [mod.RandRequest(t, s, sp, d, rid=f"b{batch}/r{i}")
+            for i, (t, s, sp, d) in enumerate(BATCH)]
+
+
+def test_coalescer_matches_reference(tmp_path):
+    (jc, jj), (tc, tj) = _coalescers(tmp_path)
+    for batch in range(3):
+        jresp, jasg, jerr = jc.flush(_requests(j_frontend, batch))
+        tresp, tasg, terr = tc.flush(_requests(t_frontend, batch))
+        assert [dataclasses.asdict(a) for a in tasg] == \
+            [dataclasses.asdict(a) for a in jasg]
+        assert sorted(terr) == sorted(jerr)
+        assert {r: type(e).__name__ for r, e in terr.items()} == \
+            {r: type(e).__name__ for r, e in jerr.items()}
+        assert f"b{batch}/r5" in terr                       # invalid spec
+        assert (f"b{batch}/r7" in terr) == (batch > 0)      # quota
+        assert sorted(tresp) == sorted(jresp)
+        for rid, want in jresp.items():
+            got = tresp[rid]
+            if isinstance(got, torch.Tensor):
+                got = got.view(torch.int16).numpy()
+                want = np.asarray(want).view(np.int16)
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert np.array_equal(got, want), rid
+    assert tc.stats() == jc.stats()
+    assert tc.stats()["window_fn_cache"] == 2      # LRU-evicted to its bound
+    tj.close()
+    jj.close()
+    assert (tmp_path / "t.jsonl").read_bytes() == \
+        (tmp_path / "j.jsonl").read_bytes()
+
+
+def test_coalescer_journals_replay_across_packages(tmp_path):
+    (jc, jj), (tc, tj) = _coalescers(tmp_path, cache=8)
+    tresp, _, _ = tc.flush(_requests(t_frontend, 0))
+    jresp, _, _ = jc.flush(_requests(j_frontend, 0))
+    tj.close()
+    jj.close()
+    from_port = j_audit.replay(str(tmp_path / "t.jsonl"), seed=7)
+    from_ref = t_audit.replay(str(tmp_path / "j.jsonl"), seed=7, device=CPU)
+    assert sorted(from_port) == sorted(from_ref) == sorted(tresp)
+    assert t_audit.response_digest(from_ref) == \
+        j_audit.response_digest(from_port) == \
+        t_audit.response_digest(tresp) == j_audit.response_digest(jresp)
+
+
+def test_coalescer_engine_failure_refunds_and_releases(monkeypatch):
+    reg = t_tenants.TenantRegistry()
+    svc = t_blocks.BlockService(7, device=CPU)
+    co = t_frontend.Coalescer(svc, reg)
+
+    def fail(*a, **kw):
+        raise RuntimeError("engine down")
+    monkeypatch.setattr(t_frontend.engine, "generate", fail)
+    resp, asg, err = co.flush([t_frontend.RandRequest("a", (9,), rid="x")])
+    assert (resp, asg) == ({}, []) and "engine down" in str(err["x"])
+    assert reg.get("a").served == 0 and reg.get("a").requests == 0
+    ch = t_frontend.class_channel("bits", "float32")
+    assert svc.ledger_state()["channels"][ch]["committed"] == []
+    monkeypatch.undo()
+    resp, asg, err = co.flush([t_frontend.RandRequest("a", (9,), rid="y")])
+    assert asg[0].lo == 0 and not err
+    assert co.stats()["engine_calls"] == 1
+    with pytest.raises(ValueError, match="rid"):
+        co.flush([t_frontend.RandRequest("a", (9,))])
+    with pytest.raises(ValueError, match="unique"):
+        co.flush([t_frontend.RandRequest("a", (9,), rid="z")] * 2)
