@@ -22,7 +22,13 @@ generate_sharded fan-out at the main path's width on meshes of shards of
 the card and on a CPU + card split, a mesh BlockService, and the port's
 Crush-lite battery (fast profile over every row, each cuda row against its
 torch twin; the full profile on the main delivery rows), its launch counts
-read around it.
+read around it.  Last the serving tier: a RandServer at the reference's
+``make service`` width (1024 requests from 1024 tenants, with and without
+standing pools, a 16384-request backlog from 4 submitter threads), every
+response of the burst held against a CPU server's plain versions, its
+journals replayed on the card, ``python -m repro_torch.service`` with
+replay and a SIGTERM drain, and a 2-shard fleet on the card at ``make
+fleet`` width with no fault, a killed and a hung shard - one digest.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -1738,6 +1744,389 @@ def phase_quality_path(device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the serving tier (RandServer, burst driver, wire transport, shard fleet)
+# ---------------------------------------------------------------------------
+
+#: the reference's ``make service`` width (Makefile) and its ServerConfig
+SERVICE_BURST = 1024
+SERVICE_TENANTS = 1024
+SERVICE_BACKLOG = 16384
+SERVICE_HOT = (("bits", "float32"), ("uniform", "float32"))
+#: the reference's ``make fleet`` width, FleetConfig defaults otherwise
+FLEET_BURST = 256
+FLEET_TENANTS = 64
+#: the hung-shard client deadline of the reference's own hang test
+FLEET_HANG_DEADLINE_S = 8.0
+SERVICE_DIR = ROOT / "build" / "chip_smoke" / "service"
+
+
+def _service_config(hot):
+    from repro_torch.service import ServerConfig
+    return ServerConfig(max_batch=256, max_delay_s=0.25, queue_depth=4096,
+                        hot_classes=hot, pool_donate=True)
+
+
+def _service_run(device, hot, reqs, name: str, *, submit_threads: int = 0,
+                 profile: bool = False, replay: bool = False) -> dict:
+    """One burst through a journaled RandServer on ``device``: submitted
+    in order before the loop starts (deterministic batches), or from
+    ``submit_threads`` threads into a running server (backpressure).
+    Checks every request is served once with its shape and dtype and the
+    ledgers are disjoint, and with ``replay`` that the journal replays on
+    the card bit for bit; returns its figures."""
+    import torch
+    from repro_torch.service import RandServer, audit
+    from repro_torch.service.burst import run_burst
+    path = SERVICE_DIR / f"{name}.jsonl"
+    srv = RandServer(0, config=_service_config(hot),
+                     journal=audit.Journal(str(path)),
+                     start=submit_threads > 0, device=device)
+    busy = None
+    prof = None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as profiler
+        prof = profiler(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+        prof.__enter__()
+    t0 = time.perf_counter()
+    if submit_threads:
+        out = run_burst(srv, reqs, submit_threads=submit_threads,
+                        timeout=600)
+    else:
+        futs = [srv.submit(r) for r in reqs]
+        srv.start()
+        out = {r.rid: f.result(timeout=600) for r, f in zip(reqs, futs)}
+    sync(device)
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        busy = _device_busy_us(prof)
+    stats = srv.stats()
+    audit.verify_ledger_disjoint(srv.block_service)
+    require(srv.shutdown(timeout=120), f"{name}: the server did not drain")
+    journal = audit.Journal(str(path), readonly=True)
+    audit.verify_ledger_disjoint(journal)
+    require(len(out) == len(reqs) and stats["requests_served"] == len(reqs)
+            and stats["requests_failed"] == 0,
+            f"{name}: served {stats['requests_served']} of {len(reqs)}")
+    rids = [e["rid"] for e in journal.requests()]
+    require(sorted(rids) == sorted(r.rid for r in reqs),
+            f"{name}: the journal does not hold every request once")
+    digest = audit.response_digest(out)
+    replay_s = None
+    if replay:
+        t0 = time.perf_counter()
+        replayed = audit.replay(journal, seed=0, device=device)
+        replay_s = time.perf_counter() - t0
+        require(audit.response_digest(replayed) == digest,
+                f"{name}: the journal's replay on the card differs")
+    _check_responses(name, reqs, out)
+    return {"digest": digest, "stats": stats, "wall": wall, "busy": busy,
+            "replay_s": replay_s, "batches": len(journal.entries)}
+
+
+def _response_tensor(a):
+    """A served response (a numpy array, or a CPU bfloat16 tensor) as a
+    tensor."""
+    import numpy as np
+    import torch
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a))
+
+
+def _check_responses(name: str, reqs, out) -> None:
+    """Each response has its request's shape and dtype, on the host, and
+    every float response is finite."""
+    import torch
+    from repro_torch.core import sampler
+    for r in reqs:
+        want = sampler.result_dtype(sampler.parse(r.sampler), r.out_dtype)
+        t = _response_tensor(out[r.rid])
+        require(tuple(t.shape) == tuple(r.shape) and t.dtype == want
+                and t.device.type == "cpu",
+                f"{name}: {r.rid} is {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}, not {r.shape} {want} on the host")
+        if t.is_floating_point():
+            require(bool(torch.isfinite(t).all()),
+                    f"{name}: {r.rid} has non-finite values")
+
+
+def _service_report(label: str, run: dict) -> None:
+    st = run["stats"]
+    busy = run["busy"]
+    share = ("not measured" if busy is None else
+             "not measured (the profiler recorded no device time)"
+             if busy <= 0.0 else
+             f"{busy / 1e3:.3f} ms of {run['wall'] * 1e3:.3f} ms wall = "
+             f"{busy / (run['wall'] * 1e6) * 100:.2f} %")
+    log(f"service[{label}]: {st['requests_served']} requests in "
+        f"{run['wall']:.4f} s (host clock) = "
+        f"{st['requests_served'] / run['wall']:.1f} req/s wall, server "
+        f"{st['requests_per_s']:.1f} req/s; p50 {st['latency_p50_ms']:.3f} "
+        f"ms, p99 {st['latency_p99_ms']:.3f} ms; {run['batches']} batch "
+        f"records; {st['engine_calls']} engine calls + {st['lease_calls']} "
+        f"leases = {st['calls_per_request']:.4f} calls/request; pool hit "
+        f"rate {st['pool_hit_rate']:.4f}; fill {st['fill_ratio']:.4f}; "
+        f"device busy {share}; "
+        + ("" if run["replay_s"] is None else
+           f"replay of every request on the card {run['replay_s']:.3f} s, "
+           f"bit-identical; ")
+        + f"ledgers disjoint; digest {run['digest'][:16]}")
+
+
+def phase_service(device) -> str:
+    """The in-process server at ``make service`` width: the burst three
+    times without pools and three times with them - the first run
+    replayed on the card, the second timed, the third under the profiler
+    for the device's busy share; one digest each - then a 16384-request
+    backlog from 4 submitter threads into a queue of 4096, replayed, and
+    once more under the profiler.  Returns the no-pool digest."""
+    import shutil
+    from repro_torch.service.burst import make_requests
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+    SERVICE_DIR.mkdir(parents=True)
+    reqs = make_requests(burst=SERVICE_BURST, tenants=SERVICE_TENANTS,
+                         seed=0)
+    digests = {}
+    for label, hot in (("no pools", ()), ("pools", SERVICE_HOT)):
+        tag = label.replace(" ", "_")
+        runs = [_service_run(device, hot, reqs, f"{tag}_{k}",
+                             replay=k == 0, profile=k == 2)
+                for k in range(3)]
+        require(len({r["digest"] for r in runs}) == 1,
+                f"service[{label}]: the same burst gave two digests")
+        require((runs[0]["stats"]["pool_requests"] > 0) == bool(hot),
+                f"service[{label}]: pool hits {runs[0]['stats']}")
+        _service_report(f"{label}, first run", runs[0])
+        _service_report(label, runs[1])
+        _service_report(f"{label}, profiled", runs[2])
+        digests[label] = runs[0]["digest"]
+    backlog = make_requests(burst=SERVICE_BACKLOG, tenants=SERVICE_TENANTS,
+                            seed=0, rid_prefix="backlog")
+    label = f"backlog {SERVICE_BACKLOG}, 4 submitters, queue 4096"
+    _service_report(label, _service_run(device, SERVICE_HOT, backlog,
+                                        "backlog", submit_threads=4,
+                                        replay=True))
+    # threaded arrivals batch by wall clock: a second run has its own
+    # batches, so it is held to its own journal's replay (outside the
+    # profiled window), not to the first digest
+    _service_report(f"{label}, profiled",
+                    _service_run(device, SERVICE_HOT, backlog, "backlog_1",
+                                 submit_threads=4, profile=True,
+                                 replay=True))
+    return digests["no pools"]
+
+
+def phase_service_cli(device, digest: str) -> None:
+    """``python -m repro_torch.service`` in subprocesses: the burst with
+    ``--verify-replay`` gives the in-process no-pool digest; ``--linger``
+    then drains on SIGTERM and exits 0."""
+    import os
+    import signal
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    base = [sys.executable, "-m", "repro_torch.service", "--burst",
+            str(SERVICE_BURST), "--tenants", str(SERVICE_TENANTS)]
+    if device.type != "cuda":
+        base += ["--device", str(device)]
+    t0 = time.perf_counter()
+    out = subprocess.run(base + ["--journal", str(SERVICE_DIR / "cli.jsonl"),
+                                 "--verify-replay", "--digest-out",
+                                 str(SERVICE_DIR / "cli.digest")],
+                         env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    require(out.returncode == 0, f"python -m repro_torch.service exited "
+            f"{out.returncode}: {out.stderr[-2000:]}")
+    got = (SERVICE_DIR / "cli.digest").read_text().strip()
+    require("replay: OK" in out.stdout, f"CLI replay: {out.stdout}")
+    require(got == digest, f"CLI digest {got} != in-process {digest}")
+    log(f"service CLI: {time.perf_counter() - t0:.1f} s for the process; "
+        f"digest == in-process no-pool run; "
+        + " | ".join(line for line in out.stdout.splitlines()
+                     if line.startswith(("served", "latency", "replay"))))
+    proc = subprocess.Popen(base + ["--linger", "60"], env=env, cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        lines = []
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("ready"):
+                proc.send_signal(signal.SIGTERM)
+                break
+        rest, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    require(proc.returncode == 0 and rest.strip().endswith("drained"),
+            f"--linger + SIGTERM: exit {proc.returncode}, {rest!r} "
+            f"{err[-2000:]}")
+    log("service CLI: --linger 60 drained on SIGTERM and exited 0")
+
+
+def phase_fleet(device) -> None:
+    """Two shard processes at ``make fleet`` width, binary v2 with the
+    default hot classes: no fault, ``kill@128`` and ``hang@128`` (client
+    deadline 8 s) give one digest; the union replay of each run's shard
+    journals on the card reproduces it; each shard logs its device."""
+    from repro_torch.runtime.fault import FaultPlan
+    from repro_torch.service import audit
+    from repro_torch.service.__main__ import _shard_stats
+    from repro_torch.service.burst import make_requests
+    from repro_torch.service.fleet import Fleet, FleetConfig, run_fleet_burst
+    reqs = make_requests(burst=FLEET_BURST, tenants=FLEET_TENANTS, seed=0)
+    half = FLEET_BURST // 2
+    digests = {}
+    for label, plan, kw in (
+            ("no fault", "", {}), (f"kill@{half}", f"kill@{half}", {}),
+            (f"hang@{half}", f"hang@{half}",
+             {"deadline_s": FLEET_HANG_DEADLINE_S})):
+        jdir = SERVICE_DIR / f"fleet_{label.replace('@', '_')}"
+        cfg = FleetConfig(num_shards=2, seed=0, journal_dir=str(jdir),
+                          queue_depth=4096,
+                          device=None if device.type == "cuda"
+                          else str(device))
+        t0 = time.perf_counter()
+        with Fleet(cfg, FaultPlan.parse(plan)) as fleet:
+            spawn = time.perf_counter() - t0
+            client = fleet.client(**kw)
+            t0 = time.perf_counter()
+            responses = run_fleet_burst(client, reqs)
+            wall = time.perf_counter() - t0
+            cstats = client.stats()
+            shards = _shard_stats(client)
+            client.close()
+            journals = fleet.journals()
+        require(len(responses) == FLEET_BURST, f"fleet[{label}]: "
+                f"{len(responses)} of {FLEET_BURST} served")
+        digest = audit.response_digest(responses)
+        replayed = {}
+        for path in journals.values():
+            replayed.update(audit.replay(path, seed=0, device=device))
+            audit.verify_ledger_disjoint(audit.Journal(path, readonly=True))
+        require(set(replayed) == set(responses)
+                and audit.response_digest(replayed) == digest,
+                f"fleet[{label}]: the union replay differs")
+        want = 0 if not plan else 1
+        require(cstats["failovers"] == want,
+                f"fleet[{label}]: {cstats['failovers']} failovers")
+        for i in range(2):
+            first = (jdir / f"shard{i}.log").read_text().splitlines()[0]
+            require(device.type in first, f"fleet shard {i}: {first!r}")
+        rec = cstats["recovery_ms"]
+        log(f"fleet[{label}]: {FLEET_BURST} requests in {wall:.4f} s "
+            f"(host clock) = {FLEET_BURST / wall:.1f} req/s; p50 "
+            f"{cstats['latency_p50_ms']:.3f} ms, p99 "
+            f"{cstats['latency_p99_ms']:.3f} ms; failovers "
+            f"{cstats['failovers']}, retries {cstats['retries']}, recovery "
+            f"{'none' if rec is None else f'{rec:.3f} ms'}; "
+            f"{cstats['bytes_on_wire_per_req']:.1f} bytes/request on the "
+            f"wire (v2); live shards: {shards['engine_calls']} engine "
+            f"calls + {shards['lease_calls']} leases for "
+            f"{shards['requests_served']} requests, pool hit rate "
+            f"{shards['pool_hit_rate']:.4f}; spawn {spawn:.1f} s; union "
+            f"replay on the card bit-identical; shard logs: "
+            + "; ".join((jdir / f"shard{i}.log").read_text().splitlines()[0]
+                        for i in range(2)))
+        digests[label] = digest
+    require(len(set(digests.values())) == 1,
+            f"fleet digests differ: {digests}")
+    log(f"fleet: no-fault, kill and hang digests equal "
+        f"({digests['no fault'][:16]})")
+
+
+#: the log-stage classes, held within the 8-ULP slack of ``sampler.ulp_error``
+SERVICE_LOG_STAGES = ("normal", "exponential", "gamma")
+SERVICE_ULP_SLACK = 8.0
+
+
+def _serve_deterministic(device, hot, reqs) -> dict:
+    """``reqs`` through an unjournaled RandServer on ``device``, submitted
+    before the loop starts, so the batches are a function of the list."""
+    from repro_torch.service import RandServer
+    srv = RandServer(0, config=_service_config(hot), journal=None,
+                     start=False, device=device)
+    futs = [srv.submit(r) for r in reqs]
+    srv.start()
+    out = {r.rid: f.result(timeout=600) for r, f in zip(reqs, futs)}
+    require(srv.shutdown(timeout=120), "the plain-check server did not drain")
+    return out
+
+
+def phase_service_plain(device) -> None:
+    """Kernel A at the service path's shapes against the plain version:
+    the ``make service`` burst, with and without pools, served on the card
+    and by a server on the CPU, where every block comes from the plain
+    torch version (held to the reference by the CPU tests), compared
+    response by response - bit for bit on the integer and threshold
+    classes, within 8 ULP (``sampler.ulp_error``) on normal, exponential
+    and gamma.  This covers the pool windows, the class calls with their
+    leaf offsets at their (rows, S) shapes and the S = 1 calls.  Runs
+    before the path's counts are reset."""
+    import torch
+    from repro_torch.core import sampler
+    from repro_torch.service.burst import make_requests
+    reqs = make_requests(burst=SERVICE_BURST, tenants=SERVICE_TENANTS,
+                         seed=0)
+    for label, hot in (("no pools", ()), ("pools", SERVICE_HOT)):
+        t0 = time.perf_counter()
+        card = _serve_deterministic(device, hot, reqs)
+        plain = _serve_deterministic(torch.device("cpu"), hot, reqs)
+        exact, worst = 0, {}
+        for r in reqs:
+            got, want = _response_tensor(card[r.rid]), _response_tensor(
+                plain[r.rid])
+            require(got.dtype == want.dtype and got.shape == want.shape,
+                    f"service plain check[{label}]: {r.rid} is {got.dtype} "
+                    f"{tuple(got.shape)}, plain {want.dtype} "
+                    f"{tuple(want.shape)}")
+            cls = r.sampler.split("(")[0]
+            if cls in SERVICE_LOG_STAGES:
+                err = (float(sampler.ulp_error(got, want).max())
+                       if got.numel() else 0.0)
+                worst[cls] = max(worst.get(cls, 0.0), err)
+                require(err <= SERVICE_ULP_SLACK,
+                        f"service plain check[{label}]: {r.rid} "
+                        f"({r.sampler}) is {err} ULP off the plain version")
+            else:
+                require(torch.equal(got.reshape(-1).view(torch.uint8),
+                                    want.reshape(-1).view(torch.uint8)),
+                        f"service plain check[{label}]: {r.rid} "
+                        f"({r.sampler}, {r.out_dtype}) differs from the "
+                        f"plain version")
+                exact += 1
+        log(f"service plain check[{label}]: {len(reqs)} responses on the "
+            f"card against a CPU server's plain versions: {exact} integer / "
+            f"threshold responses bit-identical, log stages within "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(worst.items()))
+            + f" ULP (limit {SERVICE_ULP_SLACK:g}); "
+            f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_service_path(device) -> dict:
+    """The serving tier's path - the in-process server, its CLI and the
+    shard fleet - with the block generators' launch counts set to 0 just
+    before and read just after.  The CLI's and the shards' launches are
+    their own processes'; this process's runs must launch kernel A."""
+    from repro_torch.kernels import thundering_block as tb
+    phase_service_plain(device)
+    tb.reset_counts()
+    digest = phase_service(device)
+    phase_service_cli(device, digest)
+    phase_fleet(device)
+    launches = {"thundering_ctr": tb.thundering_ctr.launches}
+    plain_runs = (tb.thundering_ctr_plain.cuda_runs
+                  + tb.thundering_faithful_plain.cuda_runs)
+    log(f"service path: launches {launches}; thundering_faithful "
+        f"{tb.thundering_faithful.launches} (the server opens ctr channels "
+        f"only); plain versions run on the card: {plain_runs}")
+    require(launches["thundering_ctr"] > 0,
+            "kernel A never launched on the service path")
+    require(plain_runs == 0, "a plain version ran on a CUDA tensor")
+    return launches
+
+
 def run_phase(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -1803,6 +2192,8 @@ def main() -> int:
         run_phase("delivery", phase_delivery, device)
         run_phase("repairs", phase_repairs, device)
         by_path["quality"] = run_phase("quality path", phase_quality_path,
+                                       device)
+        by_path["service"] = run_phase("service path", phase_service_path,
                                        device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

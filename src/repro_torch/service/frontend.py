@@ -159,10 +159,12 @@ def slice_response(block, col0: int, ncols: int, assignment_n: int,
     return flat[:assignment_n].reshape(shape)
 
 
-def host_block(block: torch.Tensor):
+def host_block(block: torch.Tensor, *, copy: bool = False):
     """A generated block on the host: a numpy array, or a CPU tensor for
-    bfloat16, which numpy has no type for (one copy off the card)."""
-    block = block.cpu()
+    bfloat16, which numpy has no type for (one copy off the card).
+    ``copy=True`` gives a fresh buffer for a block that is already on the
+    CPU too: a donated ring buffer is overwritten by a later window."""
+    block = block.to("cpu", copy=copy)
     return block if block.dtype == torch.bfloat16 else block.numpy()
 
 

@@ -313,15 +313,16 @@ PORT_MODULES = [
     "repro_torch.quality", "repro_torch.quality.crush",
     "repro_torch.quality.cross", "repro_torch.quality.pit",
     "repro_torch.quality.battery", "repro_torch.quality.render",
-    "repro_torch.quality.__main__"]
+    "repro_torch.quality.__main__", "repro_torch.service.burst",
+    "repro_torch.service.server", "repro_torch.service.transport",
+    "repro_torch.service.fleet", "repro_torch.service.__main__"]
 
 
 def test_port_imports_neither_jax_nor_reference():
     code = ("import importlib, sys\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'repro' or "
-            "m.startswith('repro.'))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'repro', 'ml_dtypes'))\n"
             "assert not bad, bad\n"
             "from repro_torch.runtime.blocks import BlockService\n"
             "svc = BlockService(seed=1, device='cpu')\n"
@@ -350,7 +351,15 @@ def test_port_imports_neither_jax_nor_reference():
             "from repro_torch.quality import run_battery\n"
             "run_battery('tiny', device='cpu', generators=["
             "'thundering/ctr/service', 'ablation/raw_lcg_pit'])\n"
-            "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"
+            "from repro_torch.service import RandServer, ServerConfig\n"
+            "srv = RandServer(seed=2, config=ServerConfig(max_batch=2, "
+            "hot_classes=(('bits', 'float32'),), pool_rows=8, "
+            "pool_cols=4), device='cpu')\n"
+            "assert srv.request('t', (5,)).shape == (5,)\n"
+            "assert srv.request('t', (3,), 'uniform', 'bfloat16').dtype == "
+            "torch.bfloat16\n"
+            "assert srv.shutdown()\n"
+            "assert not {'jax', 'repro', 'ml_dtypes'} & set(sys.modules)\n"
             "print('isolated')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

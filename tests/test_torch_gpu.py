@@ -493,3 +493,79 @@ def test_gumbel_argmax_subnormal_logits_equal_plain(cuda, top_k, inv_temp):
     want = ga.fused_argmax_plain(logits.cpu(), h.cpu(), x0, 977, th.cpu(),
                                  inv_temp=inv_temp)
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the serving tier on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("donate", [False, True])
+def test_pool_columns_equal_regenerate_on_card(cuda, donate):
+    from repro_torch.service import (Journal, RandRequest, RandServer,
+                                     ServerConfig)
+    from repro_torch.service.server import pool_channel
+    klass = ("uniform", "bfloat16")
+    cfg = ServerConfig(max_batch=4, max_delay_s=0.0, hot_classes=(klass,),
+                       pool_rows=64, pool_cols=8, pool_donate=donate)
+    journal = Journal()
+    srv = RandServer(5, config=cfg, journal=journal, start=False,
+                     device=cuda)
+    reqs = [RandRequest(tenant_id=f"t{i % 3}", shape=(30 + i,),
+                        sampler=klass[0], out_dtype=klass[1], rid=f"p{i}")
+            for i in range(40)]
+    futs = [srv.submit(r) for r in reqs]
+    srv.start()
+    out = {r.rid: f.result(timeout=120) for r, f in zip(reqs, futs)}
+    assert srv.stats()["pool_requests"] == 40
+    assert srv.shutdown(timeout=60)
+    svc = BlockService(seed=5, device=cuda)
+    ch = pool_channel(*klass)
+    svc.open(ch, num_streams=8, sampler=klass[0], out_dtype=klass[1])
+    for e in journal.requests():
+        block = svc.regenerate(ch, e["lo"], e["rows"]).cpu()
+        cols = block[:, e["tags"]].T.reshape(-1)[:out[e["rid"]].numel()]
+        assert torch.equal(cols.view(torch.int16),
+                           out[e["rid"]].view(torch.int16))
+
+
+def test_server_burst_replays_bit_identically_on_card(cuda):
+    from repro_torch.service import (Journal, RandServer, ServerConfig,
+                                     replay, response_digest,
+                                     verify_ledger_disjoint)
+    from repro_torch.service.burst import make_requests
+    tb.reset_counts()
+    journal = Journal()
+    srv = RandServer(0, config=ServerConfig(
+        max_batch=64, max_delay_s=0.25,
+        hot_classes=(("bits", "float32"), ("uniform", "float32"))),
+        journal=journal, start=False, device=cuda)
+    reqs = make_requests(burst=256, tenants=64, seed=0)
+    futs = [srv.submit(r) for r in reqs]
+    srv.start()
+    out = {r.rid: f.result(timeout=120) for r, f in zip(reqs, futs)}
+    assert srv.shutdown(timeout=60)
+    assert srv.stats()["pool_requests"] > 0
+    assert response_digest(replay(journal, seed=0, device=cuda)) == \
+        response_digest(out)
+    verify_ledger_disjoint(journal)
+    assert tb.thundering_ctr.launches > 0
+    assert tb.thundering_ctr_plain.cuda_runs == 0
+
+
+@pytest.mark.parametrize("version", [1, 2])
+def test_bfloat16_responses_survive_the_wire_on_card(cuda, version):
+    import socket
+    from repro_torch.service import RandServer, ServerConfig, transport
+    srv = RandServer(1, config=ServerConfig(max_batch=1), device=cuda)
+    got = srv.request("t", (7, 9), sampler="normal", out_dtype="bfloat16")
+    assert srv.shutdown(timeout=60)
+    assert got.dtype == torch.bfloat16 and got.device.type == "cpu"
+    a, b = socket.socketpair()
+    try:
+        transport.send_wire(a, {"ok": True, "array": got}, version=version)
+        back = transport.reply_array(transport.recv_wire(b)[0])
+    finally:
+        a.close()
+        b.close()
+    assert back.dtype == torch.bfloat16 and tuple(back.shape) == (7, 9)
+    assert torch.equal(back.view(torch.int16), got.view(torch.int16))
