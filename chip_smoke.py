@@ -2127,6 +2127,476 @@ def phase_service_path(device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the model serving path: gemma-7b at full width through kernels A and F
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "gemma_7b"       # unmodified config: 28 layers, d 3072, V 256000
+SERVE_BATCH = 64              # the inference tier's capacity
+SERVE_PROMPT = 128
+SERVE_GEN = 32
+SERVE_CLI_GEN = 8
+SERVE_TEMPERATURE = 0.8
+SERVE_SEED = 0
+# decode against forward at full width: the reference's own slack
+# (tests/test_models.py::test_decode_matches_forward, 2 layers)
+SERVE_ROWS, SERVE_POSITIONS = 4, 16
+SERVE_SLACK_ATOL, SERVE_SLACK_RTOL = 0.15, 0.05
+# bf16 decode at full depth: the RMS distance of its logits from the
+# float32 run over bf16 forward's (tools/serve_numerics.py on an H100:
+# 0.995-1.007 sound over 2 seeds x 4 row sets; 3.75-3.84 with a float8
+# cache; 21.6-23.4 decoding one position early)
+SERVE_DECODE_RMS_RATIO = 1.1
+# card against CPU at the smoke width: the CPU tests' port-against-
+# reference logit tolerance (tests/test_torch_models.py LOGIT_ATOL)
+SERVE_LOGIT_ATOL = 0.02
+SERVE_INIT_ULP = 8
+SERVE_PROFILE_STEPS = 8
+# kernel A's draws at the full-width path's shapes against the plain
+# version: (parameter path, chunk) of gemma-7b's init - the first full
+# chunk of 2^28 elements and the ragged last chunk of an MLP matrix and of
+# the embedding - and the prompts' (batch, prompt + 1) uniforms
+SERVE_DRAWS = (("layers/wg", 0), ("layers/wg", -1), ("embed", -1))
+SERVE_PLAIN_WINDOW = 1 << 24   # elements per plain call (its temporaries)
+
+
+def _ordered_f32(t):
+    """float32 tensor -> int64 keys in float order (ULP distance)."""
+    import torch
+    i = t.contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, -(2 ** 31) - i, i)
+
+
+def _greedy_teacher_forced(model, params, prompts, gen, tokens=None):
+    """Prefill ``prompts`` and decode ``gen`` - 1 steps; each step's input
+    token is ``tokens[:, i]`` when given, else this run's own argmax.
+    Returns the (B, gen, V) float32 logits on the host and the tokens."""
+    import torch
+    from repro_torch.launch import serve as srv
+    B, P = prompts.shape
+    logits, pcache = model.prefill(params, {"tokens": prompts})
+    cache = srv._graft(model.cfg, model.init_cache(B, P + gen), pcache, P)
+    out, toks = [logits.cpu()], []
+    for i in range(gen):
+        tok = (tokens[:, i:i + 1] if tokens is not None
+               else torch.argmax(out[-1], -1)[:, None].to(torch.int32))
+        toks.append(tok)
+        if i < gen - 1:
+            logits, cache = model.decode(params, cache, tok.to(model.device),
+                                         P + i)
+            out.append(logits.cpu())
+    return torch.stack(out, 1), torch.cat(toks, 1)
+
+
+def _draw_against_plain(label: str, s, n: int) -> None:
+    """``stream.uniforms(s, (n,))`` - one launch of kernel A at S = 1, as
+    ``stream.normal`` and the data pipeline draw - against the plain torch
+    version of the same elements on the card, ``SERVE_PLAIN_WINDOW`` at a
+    time: bit for bit (an exact stage, as in ``phase_parity``)."""
+    from repro_torch.core import engine
+    from repro_torch.core import stream as tstream
+    from repro_torch.kernels import thundering_block as tb
+    t0 = time.perf_counter()
+    before = tb.thundering_ctr.launches
+    got = tstream.uniforms(s, (n,))
+    require(tb.thundering_ctr.launches == before + 1, f"serve draws: "
+            f"{label} took {tb.thundering_ctr.launches - before} launches")
+    for lo in range(0, n, SERVE_PLAIN_WINDOW):
+        m = min(SERVE_PLAIN_WINDOW, n - lo)
+        want = engine.generate_flat(
+            engine.plan_for_stream(tstream.advance(s, lo), m,
+                                   sampler="uniform"), backend="torch")
+        ok, err, _ = compare(got[lo:lo + m], want, "uniform")
+        require(ok, f"serve draws: kernel A differs from the plain version "
+                    f"in {label} at elements [{lo}, {lo + m}) "
+                    f"(max_abs_err={err})")
+    log(f"serve draws: {label}: {n} uniforms (T = {n}, S = 1, ctr "
+        f"{s.ctr}) equal the plain version bit for bit; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_serve_draws(device) -> None:
+    """Kernel A at the full-width serve path's shapes against the plain
+    version: the chunks of ``SERVE_DRAWS`` at the counters
+    ``common.trunc_normal`` gives them, and the prompts' uniforms of
+    ``pipeline_for(...).batch_at(0)``.  Runs before the path's counts are
+    reset."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.core import stream as tstream
+    from repro_torch.launch.train import pipeline_for
+    from repro_torch.models import registry
+    from repro_torch.models.common import PARAM_CHUNK, flatten, param_stream
+    cfg = get_config(SERVE_ARCH)
+    shapes = flatten(registry.build(cfg, "meta").init(SERVE_SEED)[0])
+    for path, chunk in SERVE_DRAWS:
+        n = math.prod(shapes[path].shape)
+        lo = (chunk % -(-n // PARAM_CHUNK)) * PARAM_CHUNK
+        m = min(PARAM_CHUNK, n - lo)
+        s = tstream.advance(param_stream(SERVE_SEED, path, device), lo)
+        _draw_against_plain(f"{path} chunk {chunk} of {-(-n // PARAM_CHUNK)}"
+                            f" ({n} elements)", s, m)
+    pipe = pipeline_for(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_SEED,
+                        device=device)
+    _draw_against_plain(f"prompts ({SERVE_BATCH}, {SERVE_PROMPT + 1})",
+                        tstream.derive(pipe._root, 0),
+                        SERVE_BATCH * (SERVE_PROMPT + 1))
+
+
+def phase_serve_plain(device) -> None:
+    """The serving path at ``launch.train.smoke_config(gemma_7b)`` width
+    on the card against the same code on the CPU (which the CPU tests hold
+    against the reference): init within 8 ULP per parameter; prefill and
+    decode logits on equal weights within ``SERVE_LOGIT_ATOL``; greedy
+    tokens equal wherever the CPU's top-2 margin exceeds twice that.
+    Runs before the path's counts are reset."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import pipeline_for, smoke_config
+    from repro_torch.models import registry
+    from repro_torch.models.common import flatten, unflatten
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    cfg = smoke_config(get_config(SERVE_ARCH))
+    m_cpu, m_card = registry.build(cfg, cpu), registry.build(cfg, device)
+    p_cpu = flatten(m_cpu.init(SERVE_SEED)[0])
+    p_card = flatten(m_card.init(SERVE_SEED)[0])
+    worst_ulp, exact_zero = 0, 0
+    for path, want in p_cpu.items():
+        got = p_card[path].cpu()
+        if not want.any():
+            require(not got.any(), f"serve plain check: {path} is not zero")
+            exact_zero += 1
+            continue
+        worst_ulp = max(worst_ulp, int((_ordered_f32(got)
+                                        - _ordered_f32(want)).abs().max()))
+    require(worst_ulp <= SERVE_INIT_ULP, f"serve plain check: init is "
+            f"{worst_ulp} ULP from the CPU's (limit {SERVE_INIT_ULP})")
+    same = unflatten({k: v.to(device) for k, v in p_cpu.items()})
+    B, P, G = 8, 32, 16
+    prompts = pipeline_for(cfg, B, P, SERVE_SEED,
+                           device=cpu).batch_at(0)["tokens"]
+    want, toks = _greedy_teacher_forced(m_cpu, unflatten(p_cpu), prompts, G)
+    got, _ = _greedy_teacher_forced(m_card, same, prompts.to(device), G,
+                                    tokens=toks)
+    err = float((got - want).abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * SERVE_LOGIT_ATOL
+    agree = torch.argmax(got, -1) == torch.argmax(want, -1)
+    log(f"serve plain check (smoke width {cfg.d_model}/{cfg.n_layers} "
+        f"layers/V {cfg.vocab}): init within {worst_ulp} ULP of the CPU "
+        f"({len(p_cpu) - exact_zero} drawn tensors, {exact_zero} zeros "
+        f"exact); prefill + {G - 1} decode logits on equal weights max "
+        f"|card - cpu| {err:.6f} (limit {SERVE_LOGIT_ATOL}); greedy tokens "
+        f"equal at {int((agree & sure).sum())} of {int(sure.sum())} "
+        f"positions with a top-2 margin > {2 * SERVE_LOGIT_ATOL} "
+        f"({int(agree.sum())} of {agree.numel()} overall); "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(err <= SERVE_LOGIT_ATOL, f"serve plain check: logits {err} "
+            f"from the CPU's")
+    require(bool(agree[sure].all()), "serve plain check: a greedy token "
+            "with a clear margin differs from the CPU's")
+
+
+def _serve_report(label: str, toks, stats, peak=None) -> None:
+    line = (f"serve[{label}]: tokens {tuple(toks.shape)}; init "
+            f"{stats['init_s']:.3f} s; prefill {stats['prefill_s']:.3f} s; "
+            f"decode {stats['decode_s']:.3f} s = "
+            f"{stats['decode_tok_s']:.1f} tok/s; step p50 "
+            f"{stats['step_p50_ms']:.3f} ms, p99 {stats['step_p99_ms']:.3f} "
+            f"ms")
+    if "sampler_calls_per_step" in stats:
+        line += f"; sampler calls/step {stats['sampler_calls_per_step']}"
+    if peak is not None:
+        line += f"; peak memory {peak / 2 ** 30:.2f} GiB"
+    log(line + f" ({card_line()})")
+
+
+def _free_card() -> None:
+    """Return the cached blocks of finished runs to the card (before a
+    subprocess or a fresh full-width model needs them)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_cli(device, want: str) -> None:
+    """``python -m repro_torch.launch.serve`` at full width in a
+    subprocess: its 8 tokens per row give the in-process run's digest of
+    the first 8 steps."""
+    import os
+    _free_card()
+    args = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            SERVE_ARCH, "--batch", str(SERVE_BATCH), "--prompt-len",
+            str(SERVE_PROMPT), "--gen", str(SERVE_CLI_GEN), "--temperature",
+            str(SERVE_TEMPERATURE)]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run(args, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    require(out.returncode == 0, f"the serve CLI failed: "
+            f"{out.stderr[-2000:]}")
+    got = re.search(r"tokens sha256: ([0-9a-f]{64})", out.stdout)
+    require(got is not None, f"the serve CLI printed no digest: "
+            f"{out.stdout[-2000:]}")
+    log(f"serve CLI (gen {SERVE_CLI_GEN}, subprocess): digest "
+        f"{got.group(1)[:16]} == in-process first {SERVE_CLI_GEN} steps "
+        f"{want[:16]}; {time.perf_counter() - t0:.1f} s; "
+        + " ".join(out.stdout.strip().splitlines()[:2]))
+    require(got.group(1) == want, "the serve CLI's tokens differ from the "
+                                  "in-process run's")
+
+
+def _kernel_kind(name: str) -> str:
+    low = name.lower()
+    if "gumbel_argmax" in low:
+        return "kernel F"
+    if "thundering" in low:
+        return "kernel A"
+    if any(k in low for k in ("gemm", "gemv", "xmma", "cutlass", "sm90_",
+                              "ampere", "splitk", "nvjet")):
+        return "matmul"
+    if "copy" in low or "cast" in low:
+        return "copy / cast"
+    return "other elementwise / reduce"
+
+
+def _decode_and_forward(model, params, toks):
+    """(decode logits position by position, ``lm_forward`` logits), both
+    (rows, positions, V) float32."""
+    import torch
+    R, S = toks.shape
+    full, _ = model.forward(params, {"tokens": toks})
+    cache = model.init_cache(R, S)
+    dec = []
+    for pos in range(S):
+        lg, cache = model.decode(params, cache, toks[:, pos:pos + 1], pos)
+        dec.append(lg)
+    return torch.stack(dec, 1), full
+
+
+def _excess(a, b) -> float:
+    """max(|a - b| - rtol |b|): within the slack when <= atol."""
+    return float(((a - b).abs() - SERVE_SLACK_RTOL * b.abs()).max())
+
+
+def _rms(a, b) -> float:
+    return float((a - b).pow(2).mean().sqrt())
+
+
+def _serve_decode_vs_forward(model, params, device) -> None:
+    """Decode logits against ``lm_forward``'s on 4 rows x 16 positions at
+    full width.  The reference states its slack (atol 0.15, rtol 0.05)
+    for 2 layers; over 28 layers bf16 rounding alone moves the logits
+    further (``tools/serve_numerics.py``: forward is 0.33 from a float32
+    run).  So the decode logic is held to the slack with float32
+    activations at full depth, and with bf16 at the reference's depth
+    (the first 2 layers, full width); at full depth in bf16, decode's RMS
+    distance from the float32 run may exceed forward's by the factor
+    ``SERVE_DECODE_RMS_RATIO`` at most."""
+    import torch
+    from repro_torch.launch.train import pipeline_for
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    toks = pipeline_for(cfg, SERVE_ROWS, SERVE_POSITIONS, SERVE_SEED,
+                        device=device).batch_at(0)["tokens"]
+    dec, full = _decode_and_forward(model, params, toks)
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        dec32, full32 = _decode_and_forward(model, params, toks)
+    finally:
+        L.COMPUTE_DTYPE = torch.bfloat16
+    two = registry.build(cfg.scaled(n_layers=2), device)
+    p2 = dict(params, layers={k: v[:2] for k, v in params["layers"].items()})
+    dec2, full2 = _decode_and_forward(two, p2, toks)
+    gap = float((dec - full).abs().max())
+    e_fwd = float((full - full32).abs().max())
+    e_dec = float((dec - full32).abs().max())
+    ratio = _rms(dec, full32) / _rms(full, full32)
+    ex32, ex2 = _excess(dec32, full32), _excess(dec2, full2)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (dec, full, dec32, dec2))
+    log(f"serve decode vs forward (full width, {SERVE_ROWS} rows x "
+        f"{SERVE_POSITIONS} positions, logits up to "
+        f"{float(full.abs().max()):.3f}): float32 activations, "
+        f"{cfg.n_layers} layers: max |decode - forward| "
+        f"{float((dec32 - full32).abs().max()):.6f}, excess over the slack "
+        f"{ex32:.6f} (limit {SERVE_SLACK_ATOL}); bf16, 2 layers: "
+        f"{float((dec2 - full2).abs().max()):.5f}, excess {ex2:.5f} (limit "
+        f"{SERVE_SLACK_ATOL}); bf16, {cfg.n_layers} layers: "
+        f"{gap:.5f}, excess {_excess(dec, full):.5f} (not held to the "
+        f"slack), decode {e_dec:.5f} and forward {e_fwd:.5f} from the "
+        f"float32 run (max abs), RMS ratio {ratio:.4f} (limit "
+        f"{SERVE_DECODE_RMS_RATIO}); finite {finite}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(finite, "non-finite logits in decode against forward")
+    require(ex32 <= SERVE_SLACK_ATOL, "float32 decode logits leave the "
+            "reference's slack around forward's")
+    require(ex2 <= SERVE_SLACK_ATOL, "2-layer bf16 decode logits leave the "
+            "reference's slack around forward's")
+    require(ratio <= SERVE_DECODE_RMS_RATIO, f"bf16 decode's RMS distance "
+            f"from the float32 run is {ratio:.4f}x forward's")
+
+
+def _serve_profile(model, params, device) -> None:
+    """Prefill at (64, 128), then 8 fused decode steps under
+    ``torch.profiler``: the device's busy share over the steps, kernel
+    F's share, device time by kind and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve as srv
+    from repro_torch.launch.train import pipeline_for
+    cfg = model.cfg
+    prompts = pipeline_for(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_SEED,
+                           device=device).batch_at(0)["tokens"]
+    P, G = SERVE_PROMPT, SERVE_PROFILE_STEPS
+    logits, pcache = model.prefill(params, {"tokens": prompts})
+    cache = srv._graft(cfg, model.init_cache(SERVE_BATCH, P + G), pcache, P)
+    del pcache
+    picker = srv.TokenPicker(seed=SERVE_SEED, batch=SERVE_BATCH,
+                             vocab=cfg.vocab, temperature=SERVE_TEMPERATURE,
+                             device=device)
+    tok = picker.pick(0, logits)
+    tok.cpu()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(G):
+            logits, cache = model.decode(params, cache, tok, P + i)
+            tok = picker.pick(i + 1, logits)
+            tok.cpu()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kinds, top = {}, []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = float(getattr(evt, "self_device_time_total", 0.0)
+                   or getattr(evt, "self_cuda_time_total", 0.0))
+        kinds[_kernel_kind(evt.key)] = kinds.get(_kernel_kind(evt.key),
+                                                 0.0) + us
+        top.append((us, evt.key, evt.count))
+    busy = sum(kinds.values())
+    if busy <= 0.0:
+        log("serve profile: not measured (the profiler recorded no device "
+            "time)")
+        return
+    log(f"serve profile ({G} fused decode steps at (B, V) = "
+        f"({SERVE_BATCH}, {cfg.vocab}), ctx {P + G}): wall "
+        f"{wall_us / 1e3:.3f} ms = {wall_us / G / 1e3:.3f} ms/step; device "
+        f"busy {busy / 1e3:.3f} ms = {busy / wall_us * 100:.1f} % (idle "
+        f"{100 - busy / wall_us * 100:.1f} %); kernel F "
+        f"{kinds.get('kernel F', 0.0) / G:.1f} us/step = "
+        f"{kinds.get('kernel F', 0.0) / wall_us * 100:.2f} % of a step")
+    for kind, us in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        log(f"  device time {kind}: {us / G / 1e3:.3f} ms/step "
+            f"({us / busy * 100:.1f} % of busy)")
+    for us, key, count in sorted(top, reverse=True)[:12]:
+        log(f"  top kernel {us / G / 1e3:.4f} ms/step x{count / G:.0f}: "
+            f"{key[:110]}")
+
+
+def phase_serve_model(device) -> None:
+    """Full-width model checks on one init: decode against forward, then
+    the profile of decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry
+    _free_card()
+    model = registry.build(get_config(SERVE_ARCH), device)
+    params, _ = model.init(SERVE_SEED)
+    _serve_decode_vs_forward(model, params, device)
+    _serve_profile(model, params, device)
+
+
+def phase_serve_path(device) -> dict:
+    """Kernel A at the path's draw shapes and the smoke width on the card
+    against the plain versions; then the model serving path at gemma-7b's
+    full width through the user entry point ``launch.serve.serve``:
+    temperature 0.8 on the fused path (kernel F every step) twice - equal
+    tokens - then on the card's two-pass path (kernel A noise, plain
+    argmax) - the same tokens - and greedy (no sampler, no leases), with
+    kernel A and F's counts set to 0 just before and read just after; then
+    ``python -m repro_torch.launch.serve`` in a subprocess, decode against
+    forward at full width and the profile of decode steps."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.inference.kernels import gumbel_argmax as ga
+    from repro_torch.kernels import thundering_block as tb
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import registry
+    from repro_torch.models.common import flatten
+    phase_serve_draws(device)
+    phase_serve_plain(device)
+    cfg = get_config(SERVE_ARCH)
+    shapes = flatten(registry.build(cfg, "meta").init(0)[0])
+    n_params = sum(v.numel() for v in shapes.values())
+    log(f"serve: {cfg.name} unmodified ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads x {cfg.resolved_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.act}, tied "
+        f"{cfg.tie_embeddings}): {n_params} parameters, "
+        f"{n_params * 4 / 1e9:.1f} GB in float32; batch {SERVE_BATCH}, "
+        f"prompt {SERVE_PROMPT}, {SERVE_GEN} tokens, seed {SERVE_SEED}")
+    kw = dict(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
+              seed=SERVE_SEED, device=device)
+    total = torch.cuda.get_device_properties(device).total_memory
+    tb.reset_counts()
+    ga.reset_counts()
+    runs = {}
+    for label, temp, path in (("fused", SERVE_TEMPERATURE, "fused"),
+                              ("fused again", SERVE_TEMPERATURE, "fused"),
+                              ("two-pass", SERVE_TEMPERATURE, "cuda"),
+                              ("greedy", 0.0, "fused")):
+        _free_card()
+        torch.cuda.reset_peak_memory_stats(device)
+        f0 = ga.fused_argmax.launches
+        toks, stats = srv.serve(cfg, temperature=temp, sampler_path=path,
+                                **kw)
+        peak = torch.cuda.max_memory_allocated(device)
+        runs[label] = toks
+        _serve_report(label, toks, stats, peak)
+        require(toks.shape == (SERVE_BATCH, SERVE_GEN)
+                and toks.dtype == np.int32 and toks.min() >= 0
+                and toks.max() < cfg.vocab, f"serve[{label}]: tokens "
+                f"{toks.shape} {toks.dtype} outside [0, {cfg.vocab})")
+        require(peak < total, f"serve[{label}]: peak {peak} >= {total}")
+        f_launches = ga.fused_argmax.launches - f0
+        if temp > 0:
+            require(stats["sampler_calls_per_step"] == 1.0,
+                    f"serve[{label}]: {stats['sampler_calls_per_step']} "
+                    f"sampler calls per step")
+            require(f_launches == (SERVE_GEN if path == "fused" else 0),
+                    f"serve[{label}]: kernel F launched {f_launches} times")
+        else:
+            require("sampler_calls_per_step" not in stats and
+                    f_launches == 0, "greedy serving drew randomness")
+    launches = {"thundering_ctr": tb.thundering_ctr.launches,
+                "gumbel_argmax": ga.fused_argmax.launches}
+    plain_runs = (ga.fused_argmax_plain.cuda_runs
+                  + tb.thundering_ctr_plain.cuda_runs
+                  + tb.thundering_faithful_plain.cuda_runs)
+    log(f"serve path: launches {launches}; plain versions run on the card: "
+        f"{plain_runs}; tokens equal: fused twice "
+        f"{np.array_equal(runs['fused'], runs['fused again'])}, fused = "
+        f"two-pass {np.array_equal(runs['fused'], runs['two-pass'])}; greedy "
+        f"= fused at {int((runs['greedy'] == runs['fused']).sum())} of "
+        f"{runs['greedy'].size}")
+    require(launches["thundering_ctr"] > 0 and launches["gumbel_argmax"] > 0,
+            "kernel A or F never launched on the serve path")
+    require(plain_runs == 0, "a plain version ran on a CUDA tensor")
+    require(np.array_equal(runs["fused"], runs["fused again"]),
+            "two in-process runs gave different tokens")
+    require(np.array_equal(runs["fused"], runs["two-pass"]),
+            "the fused and two-pass samplers gave different tokens")
+    phase_serve_cli(device,
+                    srv.tokens_digest(runs["fused"][:, :SERVE_CLI_GEN]))
+    phase_serve_model(device)
+    return launches
+
+
 def run_phase(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2195,6 +2665,7 @@ def main() -> int:
                                        device)
         by_path["service"] = run_phase("service path", phase_service_path,
                                        device)
+        by_path["serve"] = run_phase("serve path", phase_serve_path, device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

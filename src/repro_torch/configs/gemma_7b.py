@@ -1,0 +1,8 @@
+"""gemma-7b [dense]: 28L d3072 16H (GQA kv=16) ff24576 vocab256000.
+GeGLU act, head_dim=256, tied embeddings.  [arXiv:2403.08295; hf]"""
+from repro_torch.models.common import ArchConfig
+
+CONFIG = ArchConfig(
+    name="gemma-7b", family="dense", n_layers=28, d_model=3072,
+    n_heads=16, n_kv_heads=16, head_dim=256, d_ff=24576, vocab=256000,
+    act="geglu", tie_embeddings=True, rope_theta=10000.0)

@@ -45,7 +45,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core import u64
+from repro_torch.core import engine, u64
 from repro_torch.runtime import blocks, fault
 from repro_torch.service import audit, tenants
 from repro_torch.inference import slots as slots_mod
@@ -145,10 +145,10 @@ class SyntheticLogitModel:
     P1, P2 = 0x9E3779B1, 0x85EBCA77
 
     def __init__(self, capacity: int, vocab: int, scale: float = 6.0,
-                 device="cpu"):
+                 device=None):
         self.capacity = capacity
         self.vocab = vocab
-        self.device = torch.device(device)
+        self.device = engine.resolve_device(device)
         self._scale = float(np.float32(scale * 2.0 ** -24))
         col = torch.arange(vocab, dtype=torch.int64, device=self.device)
         self._col = u64.mul32_lo(col, self.P2).reshape(1, vocab)

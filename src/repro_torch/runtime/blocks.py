@@ -497,6 +497,19 @@ class BlockService:
 # Double-buffered producer
 # ---------------------------------------------------------------------------
 
+def _tensors(block: Any):
+    """The tensors of a block: itself, or the leaves of a custom
+    channel's dict / list / tuple."""
+    if isinstance(block, torch.Tensor):
+        yield block
+    elif isinstance(block, dict):
+        for v in block.values():
+            yield from _tensors(v)
+    elif isinstance(block, (list, tuple)):
+        for v in block:
+            yield from _tensors(v)
+
+
 class BlockProducer:
     """Standing producer thread: block k+1 is leased and launched while the
     consumer holds block k (the paper's FIFO-into-application pipeline).
@@ -648,12 +661,14 @@ class BlockProducer:
                     break
             try:
                 if self._fuse == 1:
-                    block = self._service.generate(
+                    # a custom channel's window may be any tensor tree
+                    stack = self._service.generate(
                         leases[0], retired=retired, **self._gen_kw)
-                    stack = block[None]
+                    outs = [stack]
                 else:
                     stack = self._service.generate_many(
                         leases, retired=retired, **self._gen_kw)
+                    outs = [stack[w] for w in range(n)]
             except BaseException:
                 if retired is not None:
                     self._recycle.put((retired, self._event()))
@@ -670,7 +685,7 @@ class BlockProducer:
             self._produced += n
             for w in range(n):
                 last = retired if w == n - 1 else None
-                if not self._put((leases[w], stack[w], ready, last)):
+                if not self._put((leases[w], outs[w], ready, last)):
                     for lease in leases[w:]:
                         self._service.release(lease)
                     return
@@ -696,7 +711,8 @@ class BlockProducer:
             if self._cuda:
                 consumer = torch.cuda.current_stream(self._service.device)
                 consumer.wait_event(ready)
-                block.record_stream(consumer)
+                for t in _tensors(block):
+                    t.record_stream(consumer)
             self._service.commit(lease)
             self._retire_held()
             self._held = ring_buf

@@ -315,7 +315,19 @@ PORT_MODULES = [
     "repro_torch.quality.battery", "repro_torch.quality.render",
     "repro_torch.quality.__main__", "repro_torch.service.burst",
     "repro_torch.service.server", "repro_torch.service.transport",
-    "repro_torch.service.fleet", "repro_torch.service.__main__"]
+    "repro_torch.service.fleet", "repro_torch.service.__main__",
+    "repro_torch.configs", "repro_torch.configs.base",
+    *(f"repro_torch.configs.{a}" for a in (
+        "gemma_7b", "glm4_9b", "qwen15_32b", "granite_34b", "qwen2_vl_72b",
+        "granite_moe_3b", "olmoe_1b_7b", "mamba2_2p7b", "zamba2_7b",
+        "whisper_small")),
+    "repro_torch.models", "repro_torch.models.common",
+    "repro_torch.models.sharding", "repro_torch.models.layers",
+    "repro_torch.models.transformer", "repro_torch.models.registry",
+    "repro_torch.models.convert", "repro_torch.data",
+    "repro_torch.data.pipeline", "repro_torch.launch",
+    "repro_torch.launch.train", "repro_torch.launch.steps",
+    "repro_torch.launch.serve"]
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -359,6 +371,12 @@ def test_port_imports_neither_jax_nor_reference():
             "assert srv.request('t', (3,), 'uniform', 'bfloat16').dtype == "
             "torch.bfloat16\n"
             "assert srv.shutdown()\n"
+            "from repro_torch.configs import get_config\n"
+            "from repro_torch.launch import serve, train\n"
+            "toks, _ = serve.serve(train.smoke_config(get_config("
+            "'qwen2_vl_72b')).scaled(vision_prefix=4), batch=2, "
+            "prompt_len=4, gen=3, temperature=0.8, device='cpu')\n"
+            "assert toks.shape == (2, 3)\n"
             "assert not {'jax', 'repro', 'ml_dtypes'} & set(sys.modules)\n"
             "print('isolated')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -569,3 +569,69 @@ def test_bfloat16_responses_survive_the_wire_on_card(cuda, version):
         b.close()
     assert back.dtype == torch.bfloat16 and tuple(back.shape) == (7, 9)
     assert torch.equal(back.view(torch.int16), got.view(torch.int16))
+
+
+def _ordered_f32(t):
+    i = t.contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, -(2 ** 31) - i, i)
+
+
+@pytest.mark.parametrize("arch", ["gemma_7b", "qwen15_32b"])
+def test_serve_smoke_width_card_matches_cpu(cuda, arch):
+    """The model at ``smoke_config`` width on the card against the same
+    code on the CPU: init within 8 ULP, logits on equal weights within
+    the CPU tests' port-against-reference tolerance (0.02)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import pipeline_for, smoke_config
+    from repro_torch.models import registry
+    from repro_torch.models.common import flatten, unflatten
+    cfg = smoke_config(get_config(arch))
+    m_cpu, m_card = registry.build(cfg, "cpu"), registry.build(cfg, cuda)
+    p_cpu = flatten(m_cpu.init(0)[0])
+    p_card = flatten(m_card.init(0)[0])
+    for path, want in p_cpu.items():
+        got = p_card[path].cpu()
+        assert int((_ordered_f32(got) - _ordered_f32(want)).abs().max()) \
+            <= 8, path
+    toks = pipeline_for(cfg, 4, 16, 0, device="cpu").batch_at(0)["tokens"]
+    want, _ = m_cpu.forward(unflatten(p_cpu), {"tokens": toks})
+    same = unflatten({k: v.to(cuda) for k, v in p_cpu.items()})
+    got, _ = m_card.forward(same, {"tokens": toks.to(cuda)})
+    assert float((got.cpu() - want).abs().max()) <= 0.02
+    cache = m_card.init_cache(4, 16)
+    for pos in range(16):
+        lg, cache = m_card.decode(same, cache, toks[:, pos:pos + 1].to(cuda),
+                                  pos)
+        assert float((lg.cpu() - want[:, pos]).abs().max()) <= 0.15 + \
+            0.05 * float(want[:, pos].abs().max())
+
+
+def test_chunked_init_on_card_equals_whole_draw(cuda):
+    from repro_torch.models import common
+    tb.reset_counts()
+    s = common.param_stream(5, "layers/wi", cuda)
+    whole = common.trunc_normal(s, (3, 1000, 7), 0.02)
+    for chunk in (4097, 1 << 14):
+        part = common.trunc_normal(s, (3, 1000, 7), 0.02, chunk=chunk)
+        assert torch.equal(part.view(torch.int32), whole.view(torch.int32))
+    assert tb.thundering_ctr.launches > 0
+    assert tb.thundering_ctr_plain.cuda_runs == 0
+    cpu = common.trunc_normal(common.param_stream(5, "layers/wi", "cpu"),
+                              (3, 1000, 7), 0.02)
+    assert int((_ordered_f32(whole.cpu()) - _ordered_f32(cpu)).abs().max()) \
+        <= 8
+
+
+def test_serve_on_card_fused_equals_twopass(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import smoke_config
+    cfg = smoke_config(get_config("glm4_9b"))
+    ga.reset_counts()
+    kw = dict(batch=4, prompt_len=8, gen=6, temperature=0.8, device=cuda)
+    fused, stats = serve.serve(cfg, sampler_path="fused", **kw)
+    assert ga.fused_argmax.launches == 6
+    twopass, _ = serve.serve(cfg, sampler_path="cuda", **kw)
+    assert np.array_equal(fused, twopass)
+    assert stats["sampler_calls_per_step"] == 1.0
+    assert ga.fused_argmax_plain.cuda_runs == 0

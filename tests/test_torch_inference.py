@@ -273,6 +273,17 @@ def test_entry_points_default_to_the_card(monkeypatch):
         t_inf.GumbelMaxSampler.standalone(seed=0, vocab=8, capacity=2)
 
 
+def test_synthetic_logit_model_defaults_to_the_card(monkeypatch):
+    """A SyntheticLogitModel built with no device is on the card, and
+    raises without one (it took the CPU silently before)."""
+    if torch.cuda.is_available():
+        assert t_inf.SyntheticLogitModel(2, 8).device.type == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_inf.SyntheticLogitModel(2, 8)
+    assert t_inf.SyntheticLogitModel(2, 8, device=CPU).device.type == "cpu"
+
+
 def test_top_k_one_is_the_argmax():
     s = _setup(3, 500, 16)
     lt = torch.from_numpy(s["logits_t"])
@@ -525,7 +536,7 @@ def test_schedule_config_fields_match_reference():
 @pytest.mark.parametrize("cap,vocab,pos0", [(4, 32, 0), (5, 300, 2 ** 32 - 3),
                                             (3, 1000, 12345)])
 def test_synthetic_logits_equal_reference_bit_for_bit(cap, vocab, pos0):
-    tm = t_inf.SyntheticLogitModel(cap, vocab, scale=6.0)
+    tm = t_inf.SyntheticLogitModel(cap, vocab, scale=6.0, device=CPU)
     jm = j_inf.SyntheticLogitModel(cap, vocab, scale=6.0)
     h = np.asarray([tm.seq_hash(f"s{i}") for i in range(cap)], np.uint32)
     p = (np.arange(cap, dtype=np.uint64) + pos0).astype(np.uint32)
