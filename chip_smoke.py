@@ -29,6 +29,14 @@ response of the burst held against a CPU server's plain versions, its
 journals replayed on the card, ``python -m repro_torch.service`` with
 replay and a SIGTERM drain, and a 2-shard fleet on the card at ``make
 fleet`` width with no fault, a killed and a hung shard - one digest.
+Then the model serving path (gemma-7b unmodified through
+``launch.serve``) and the training substrate: AdamW on the card against
+the CPU, ``train`` at the smoke width on the card against the CPU and
+through its CLI, gemma-7b at full width over 8 of its 28 layers through
+``make_train_step`` (two runs from one seed, equal parameter digests) and
+over 2 layers through ``train`` with its loop and checkpoints (a failure
+at step 3 resumed, the service and ``--no-service`` paths, remat on and
+off - one digest each).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -2199,7 +2207,7 @@ def _draw_against_plain(label: str, s, n: int) -> None:
     t0 = time.perf_counter()
     before = tb.thundering_ctr.launches
     got = tstream.uniforms(s, (n,))
-    require(tb.thundering_ctr.launches == before + 1, f"serve draws: "
+    require(tb.thundering_ctr.launches == before + 1, f"kernel A draws: "
             f"{label} took {tb.thundering_ctr.launches - before} launches")
     for lo in range(0, n, SERVE_PLAIN_WINDOW):
         m = min(SERVE_PLAIN_WINDOW, n - lo)
@@ -2207,10 +2215,10 @@ def _draw_against_plain(label: str, s, n: int) -> None:
             engine.plan_for_stream(tstream.advance(s, lo), m,
                                    sampler="uniform"), backend="torch")
         ok, err, _ = compare(got[lo:lo + m], want, "uniform")
-        require(ok, f"serve draws: kernel A differs from the plain version "
+        require(ok, f"kernel A draws: the kernel differs from the plain version "
                     f"in {label} at elements [{lo}, {lo + m}) "
                     f"(max_abs_err={err})")
-    log(f"serve draws: {label}: {n} uniforms (T = {n}, S = 1, ctr "
+    log(f"kernel A draws: {label}: {n} uniforms (T = {n}, S = 1, ctr "
         f"{s.ctr}) equal the plain version bit for bit; "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -2597,6 +2605,501 @@ def phase_serve_path(device) -> dict:
     return launches
 
 
+TRAIN_ARCH = "gemma_7b"       # published widths: d 3072, 16 x 256, V 256000
+# 8 of 28 layers: 3.0e9 parameters, ~48 GB of float32 params, grads, m and
+# v (all 28 would need ~137 GB); the loop-and-checkpoint runs take 2
+# layers (1.34e9 parameters, a 16 GB checkpoint)
+TRAIN_LAYERS, TRAIN_LOOP_LAYERS = 8, 2
+TRAIN_BATCH, TRAIN_SEQ = 8, 256     # the reference CLI's defaults
+TRAIN_STEPS = 4
+TRAIN_SEED = 0
+TRAIN_DIR = ROOT / "build" / "chip_smoke" / "train"
+# card against CPU at the smoke width: the CPU tests' loss tolerance
+# against the reference (tests/test_torch_train.py LOSS_ATOL)
+TRAIN_LOSS_ATOL = 0.02
+# step 0's chunked, remat'd loss against forward + the unchunked xent
+TRAIN_UNCHUNKED_ATOL = 1e-3
+TRAIN_ADAMW_SHAPE = (4096, 3072)
+TRAIN_PEAK_GIB = 72.0
+
+
+def _tree_digest(tree) -> str:
+    """sha256 over each leaf's path and the sha256 of its bytes, in
+    sorted path order; the leaves are copied and hashed in threads
+    (hashlib releases the GIL)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from repro_torch.models.common import flatten
+    flat = sorted(flatten(tree).items())
+
+    def leaf(t):
+        host = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+        return hashlib.sha256(host.numpy()).digest()
+
+    with ThreadPoolExecutor(8) as ex:
+        digests = list(ex.map(leaf, [t for _, t in flat]))
+    h = hashlib.sha256()
+    for (path, _), d in zip(flat, digests):
+        h.update(path.encode())
+        h.update(d)
+    return h.hexdigest()
+
+
+def _train_cfg(layers: int, **over):
+    from repro_torch.configs import get_config
+    return get_config(TRAIN_ARCH).scaled(n_layers=layers, **over)
+
+
+def _step_bound(steps: int) -> float:
+    """The most that ``steps`` steps of ``train``'s schedule can move one
+    parameter beyond another run's: 2 lr per step (a gradient may change
+    sign)."""
+    from repro_torch.optim import cosine_schedule
+    lr = cosine_schedule(3e-4, 100, max(steps, 2))
+    return 2 * sum(float(lr(s)) for s in range(1, steps + 1))
+
+
+def phase_train_adamw(device) -> None:
+    """(d) One AdamW update of a (4096, 3072) leaf on the card against the
+    same update on the CPU, with clipping off and on.  Without clipping
+    the update is bit-equal; with it, the scale comes from global_norm's
+    float32 sum, whose order differs between the devices."""
+    import numpy as np
+    import torch
+    from repro_torch.optim import AdamWState, adamw_update, cosine_schedule
+    from repro_torch.optim.adamw import global_norm
+    rng = np.random.default_rng(TRAIN_SEED)
+    shape = TRAIN_ADAMW_SHAPE
+    host = {k: torch.from_numpy(rng.normal(0, s, shape).astype(np.float32))
+            for k, s in (("p", 0.02), ("g", 1e-3), ("m", 1e-4),
+                         ("v", 1e-8))}
+    host["v"] = host["v"].abs()
+    lr = cosine_schedule(3e-4, 100, 1000)
+    t0 = time.perf_counter()
+    for clip in (1e9, 1.0):
+        out = []
+        for dev in (torch.device("cpu"), device):
+            p = {"w": host["p"].to(dev, copy=True)}
+            st = AdamWState(torch.tensor(2, dtype=torch.int32),
+                            {"w": host["m"].to(dev, copy=True)},
+                            {"w": host["v"].to(dev, copy=True)})
+            g = {"w": host["g"].to(dev, copy=True)}
+            norm = global_norm(g).cpu()
+            p, st = adamw_update(g, st, p, lr=lr, clip_norm=clip)
+            out.append((norm, p["w"].cpu(), st.m["w"].cpu(),
+                        st.v["w"].cpu()))
+        (n0, *cpu), (n1, *card) = out
+        differ = [int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                  for a, b in zip(cpu, card)]
+        ulp = max(int((_ordered_f32(a) - _ordered_f32(b)).abs().max())
+                  for a, b in zip(cpu, card))
+        norm_ulp = int((_ordered_f32(n0.reshape(1))
+                        - _ordered_f32(n1.reshape(1))).abs().max())
+        clipped = float(n0) > clip
+        log(f"train adamw card vs cpu ({shape}, clip {clip:g}, "
+            f"{'clipped' if clipped else 'not clipped'}): global_norm "
+            f"{float(n0):.6f} vs {float(n1):.6f} ({norm_ulp} ULP apart); "
+            f"elements differing in p / m / v: {differ} of "
+            f"{host['p'].numel()}; max {ulp} ULP")
+        if not clipped:
+            require(sum(differ) == 0, "train adamw: the card's update "
+                    "differs from the CPU's without clipping")
+        else:
+            require(norm_ulp > 0 or sum(differ) == 0, "train adamw: equal "
+                    "norms but a different clipped update")
+            require(ulp <= 4, f"train adamw: the clipped update is {ulp} "
+                    f"ULP from the CPU's")
+    log(f"train adamw: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_train_draws(device) -> None:
+    """Kernel A at the train path's own shapes against the plain version:
+    the ragged last chunk of the 8-layer ``layers/wg`` and a step's batch
+    uniforms.  Runs before the path's counts are reset."""
+    import math
+    from repro_torch.core import stream as tstream
+    from repro_torch.launch.train import pipeline_for
+    from repro_torch.models import registry
+    from repro_torch.models.common import PARAM_CHUNK, flatten, param_stream
+    cfg = _train_cfg(TRAIN_LAYERS)
+    n = math.prod(flatten(registry.build(cfg, "meta").init(0)[0])[
+        "layers/wg"].shape)
+    lo = (n - 1) // PARAM_CHUNK * PARAM_CHUNK
+    _draw_against_plain(f"train layers/wg ({n} elements) last chunk",
+                        tstream.advance(param_stream(TRAIN_SEED, "layers/wg",
+                                                     device), lo), n - lo)
+    pipe = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED,
+                        device=device)
+    _draw_against_plain(f"train batch of step 3 ({TRAIN_BATCH}, "
+                        f"{TRAIN_SEQ + 1})", tstream.derive(pipe._root, 3),
+                        TRAIN_BATCH * (TRAIN_SEQ + 1))
+
+
+def phase_train_smoke(device) -> None:
+    """(a) ``train`` for 4 steps at ``smoke_config(gemma_7b)`` on the card
+    and on the CPU: losses within ``TRAIN_LOSS_ATOL`` and parameters
+    within the schedule's bound of each other; then the CLI in a
+    subprocess: its loss lines equal the in-process card run's and its
+    final checkpoint holds the same parameters bit for bit."""
+    import os
+    import shutil
+    import torch
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import smoke_config, train
+    from repro_torch.models.common import flatten
+    t0 = time.perf_counter()
+    cfg = smoke_config(get_config(TRAIN_ARCH))
+    runs = []
+    for i, dev in enumerate((device, torch.device("cpu"))):
+        d = TRAIN_DIR / f"smoke_{i}"
+        shutil.rmtree(d, ignore_errors=True)
+        runs.append(train(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                          seq_len=TRAIN_SEQ, ckpt_dir=str(d), save_every=2,
+                          seed=TRAIN_SEED, device=dev))
+        shutil.rmtree(d, ignore_errors=True)
+    (pc, _, lc), (pp, _, lp) = runs
+    loss_err = max(abs(a - b) for (_, a), (_, b) in zip(lc, lp))
+    fc, fp = flatten(pc), flatten(pp)
+    p_err = max(float((fc[k].cpu() - fp[k]).abs().max()) for k in fp)
+    bound = _step_bound(TRAIN_STEPS)
+    log(f"train smoke ({cfg.d_model}/{cfg.n_layers} layers/V {cfg.vocab}, "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps) card vs "
+        f"cpu: losses {[round(l, 6) for _, l in lc]}, max |diff| "
+        f"{loss_err:.3g} (limit {TRAIN_LOSS_ATOL}); params max |diff| "
+        f"{p_err:.3g} (limit {bound:.3g}, 2 lr a step)")
+    require(len(lc) == len(lp) and [s for s, _ in lc] == [s for s, _ in lp],
+            "train smoke: the runs logged different steps")
+    require(loss_err <= TRAIN_LOSS_ATOL, "train smoke: card losses differ "
+                                         "from the CPU's")
+    require(p_err <= bound, "train smoke: card params differ from the "
+                            "CPU's beyond the schedule's bound")
+    cli_dir = TRAIN_DIR / "cli"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    args = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            TRAIN_ARCH, "--smoke", "--steps", str(TRAIN_STEPS),
+            "--save-every", "2", "--global-batch", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--seed", str(TRAIN_SEED),
+            "--ckpt-dir", str(cli_dir)]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(args, env=env, cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    require(out.returncode == 0, f"the train CLI failed: "
+            f"{out.stderr[-2000:]}")
+    cli_lines = re.findall(r"^step .*$", out.stdout, re.M)
+    want = [f"step {s:5d} loss {l:.4f}" for s, l in lc]   # log_every 10
+    tree, step, _ = load_checkpoint(str(cli_dir), device=device)
+    same = all(torch.equal(flatten(tree["params"])[k].view(torch.int32),
+                           fc[k].view(torch.int32)) for k in fc)
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    log(f"train CLI (subprocess): {cli_lines} == in-process "
+        f"{cli_lines == want}; step-{step} checkpoint params bit-equal to "
+        f"the in-process card run's: {same}; "
+        f"{out.stdout.strip().splitlines()[-1]}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(cli_lines == want, "the train CLI's loss lines differ from the "
+                               "in-process run's")
+    require(step == TRAIN_STEPS and same, "the train CLI's parameters "
+                                          "differ from the in-process run's")
+
+
+def _train_profile(step_fn, params, opt, batch, step, device) -> None:
+    """One step under ``torch.profiler``: busy share, device time by kind
+    and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, met = step_fn(params, opt, batch, step)
+        float(met["loss"])
+        torch.cuda.synchronize(device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kinds, top = {}, []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = float(getattr(evt, "self_device_time_total", 0.0)
+                   or getattr(evt, "self_cuda_time_total", 0.0))
+        kind = _kernel_kind(evt.key)
+        if kind == "other elementwise / reduce" and \
+                "index" in evt.key.lower():
+            kind = "index (embedding gather / scatter)"
+        kinds[kind] = kinds.get(kind, 0.0) + us
+        top.append((us, evt.key, evt.count))
+    busy = sum(kinds.values())
+    if busy <= 0.0:
+        log("train profile: not measured (the profiler recorded no device "
+            "time)")
+        return
+    log(f"train profile (one full-width step, {TRAIN_LAYERS} layers): wall "
+        f"{wall_us / 1e3:.1f} ms; device busy {busy / 1e3:.1f} ms = "
+        f"{busy / wall_us * 100:.1f} % (idle "
+        f"{100 - busy / wall_us * 100:.1f} %)")
+    for kind, us in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        log(f"  device time {kind}: {us / 1e3:.1f} ms "
+            f"({us / busy * 100:.1f} % of busy)")
+    for us, key, count in sorted(top, reverse=True)[:12]:
+        log(f"  top kernel {us / 1e3:.2f} ms x{count}: {key[:110]}")
+
+
+def _train_split(model, params, opt, batch, step, device):
+    """fwd + bwd and the AdamW update of one step, timed apart with CUDA
+    events (the same calls ``make_train_step``'s step makes)."""
+    import torch
+    from repro_torch.core import stream as tstream
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw_update, cosine_schedule
+    root = tstream.new_stream(TRAIN_SEED, 0xD07, device=device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    (loss, _), grads = steps.value_and_grad(
+        model, params, batch, tstream.derive(root, step))
+    ev[1].record()
+    params, opt = adamw_update(grads, opt, params,
+                               lr=cosine_schedule(3e-4, 100, TRAIN_STEPS))
+    ev[2].record()
+    ev[2].synchronize()
+    log(f"train step split (step {step}): fwd + bwd "
+        f"{ev[0].elapsed_time(ev[1]):.1f} ms, AdamW update "
+        f"{ev[1].elapsed_time(ev[2]):.1f} ms (CUDA events)")
+    return params, opt
+
+
+def phase_train_full(device) -> None:
+    """(b) gemma-7b at full width, ``TRAIN_LAYERS`` layers: step 0's loss
+    against ``model.forward`` + the unchunked ``softmax_xent``; then
+    ``make_train_step`` with ``adamw_init`` for 4 steps, twice from the
+    same seed: equal sha256 digests of the parameters.  Reports init s,
+    step s, tokens/s, peak memory, the fwd+bwd / update split and one
+    step's profile."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import pipeline_for
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry
+    from repro_torch.models.common import flatten
+    from repro_torch.optim import adamw_init
+    cfg = _train_cfg(TRAIN_LAYERS)
+    model = registry.build(cfg, device)
+    pipe = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED,
+                        device=device)
+    digests, step_s, init_s, peaks = [], [], [], []
+    for run in range(2):
+        _free_card()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        params, _ = model.init(TRAIN_SEED)
+        sync(device)
+        init_s.append(time.perf_counter() - t0)
+        if run == 0:
+            n = sum(p.numel() for p in flatten(params).values())
+            log(f"train full width: {cfg.name} d_model {cfg.d_model}, "
+                f"{cfg.n_heads} heads x {cfg.resolved_head_dim}, d_ff "
+                f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.n_layers} of 28 "
+                f"layers: {n} parameters ({n * 16 / 1e9:.1f} GB of float32 "
+                f"params, grads, m, v); batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+            with torch.no_grad():
+                b0 = pipe.batch_at(0)
+                logits, _ = model.forward(params, b0)
+                whole = float(L.softmax_xent(logits, b0["labels"]))
+                del logits
+        opt = adamw_init(params)
+        step_fn = steps.make_train_step(model, seed=TRAIN_SEED,
+                                        total_steps=TRAIN_STEPS)
+        losses, times = [], []
+        for s in range(TRAIN_STEPS):
+            batch = pipe.batch_at(s)
+            sync(device)
+            t0 = time.perf_counter()
+            params, opt, met = step_fn(params, opt, batch, s)
+            losses.append(float(met["loss"]))
+            sync(device)
+            times.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated(device))
+        t0 = time.perf_counter()
+        digests.append(_tree_digest(params))
+        step_s.extend(times[1:])
+        log(f"train full run {run}: init {init_s[-1]:.3f} s; step s "
+            f"{[round(t, 4) for t in times]}; losses {losses}; peak "
+            f"{peaks[-1] / 2 ** 30:.2f} GiB; params sha256 "
+            f"{digests[-1][:16]} ({time.perf_counter() - t0:.1f} s)")
+        if run == 0:
+            err = abs(losses[0] - whole)
+            log(f"train step 0 loss {losses[0]:.6f} (chunked, remat) vs "
+                f"forward + unchunked xent {whole:.6f}: |diff| {err:.3g} "
+                f"(limit {TRAIN_UNCHUNKED_ATOL})")
+            require(err <= TRAIN_UNCHUNKED_ATOL, "train: step 0's chunked "
+                    "loss differs from the unchunked one")
+        require(all(np.isfinite(losses)), "train: a non-finite loss")
+        if run == 1:
+            params, opt = _train_split(model, params, opt,
+                                       pipe.batch_at(TRAIN_STEPS),
+                                       TRAIN_STEPS, device)
+            _train_profile(step_fn, params, opt,
+                           pipe.batch_at(TRAIN_STEPS + 1), TRAIN_STEPS + 1,
+                           device)
+        del params, opt
+    p50 = float(np.percentile(step_s, 50))
+    total = torch.cuda.get_device_properties(device).total_memory
+    log(f"train full width: init {min(init_s):.3f}-{max(init_s):.3f} s; "
+        f"step p50 {p50:.4f} s (steps 1-{TRAIN_STEPS - 1} of 2 runs) = "
+        f"{TRAIN_BATCH * TRAIN_SEQ / p50:.0f} tokens/s; peak memory "
+        f"{max(peaks) / 2 ** 30:.2f} GiB of {total / 2 ** 30:.1f}; digests "
+        f"equal {digests[0] == digests[1]} ({card_line()})")
+    require(digests[0] == digests[1], "train: two runs from one seed gave "
+                                      "different parameters")
+    require(max(peaks) / 2 ** 30 <= TRAIN_PEAK_GIB,
+            f"train: peak memory above {TRAIN_PEAK_GIB} GiB")
+
+
+class _CheckpointMeter:
+    """While active, times the checkpoint module's host snapshots, writes
+    and loads (``CheckpointManager`` calls them as module globals) and
+    sums each written checkpoint's bytes."""
+
+    NAMES = ("_host_copy", "save_checkpoint", "load_checkpoint")
+
+    def __init__(self):
+        self.secs = {name: [] for name in self.NAMES}
+        self.bytes = []
+        self._depth = {name: 0 for name in self.NAMES}
+
+    def _timed(self, name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            self._depth[name] += 1          # _host_copy calls itself
+            try:
+                out = fn(*args, **kw)
+            finally:
+                self._depth[name] -= 1
+            if self._depth[name] == 0:
+                self.secs[name].append(time.perf_counter() - t0)
+            if name == "save_checkpoint":
+                self.bytes.append(sum(f.stat().st_size
+                                      for f in Path(out).iterdir()))
+            return out
+        return timed
+
+    def __enter__(self):
+        from repro_torch.checkpoint import checkpoint as ck
+        self._real = {name: getattr(ck, name) for name in self.NAMES}
+        for name, fn in self._real.items():
+            setattr(ck, name, self._timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.checkpoint import checkpoint as ck
+        for name, fn in self._real.items():
+            setattr(ck, name, fn)
+
+
+def phase_train_loop(device) -> None:
+    """(c) gemma-7b at full width, ``TRAIN_LOOP_LAYERS`` layers, through
+    ``train`` with the loop and checkpoints: 4 steps with save_every 2 and
+    a failure injected at step 3 (resumed from step 2's checkpoint),
+    against an uninterrupted run and a ``use_service=False`` run - equal
+    parameter digests; then the
+    gradients with ``remat="full"`` and ``"none"`` - equal digests.  Each
+    run's checkpoints are deleted once its parameters are digested."""
+    import shutil
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import pipeline_for, train
+    from repro_torch.models import registry
+    cfg = _train_cfg(TRAIN_LOOP_LAYERS)
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    du = shutil.disk_usage(TRAIN_DIR)
+    log(f"train loop: disk at {TRAIN_DIR}: {du.free / 1e9:.1f} GB free of "
+        f"{du.total / 1e9:.1f} GB")
+    digests, logged = {}, {}
+    with _CheckpointMeter() as meter:
+        # the uninterrupted runs save once, at the end (what they are
+        # compared on does not depend on the cadence)
+        for name, kw in (("fail@3", dict(fail_at=3, save_every=2)),
+                         ("clean", dict(save_every=TRAIN_STEPS)),
+                         ("no-service", dict(use_service=False,
+                                             save_every=TRAIN_STEPS))):
+            _free_card()
+            d = TRAIN_DIR / name.replace("@", "_")
+            shutil.rmtree(d, ignore_errors=True)
+            t0 = time.perf_counter()
+            params, opt, losses = train(
+                cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                seq_len=TRAIN_SEQ, ckpt_dir=str(d), seed=TRAIN_SEED,
+                log_every=1, device=device, **kw)
+            secs = time.perf_counter() - t0
+            digests[name] = _tree_digest(params)
+            logged[name] = losses
+            shutil.rmtree(d, ignore_errors=True)
+            del params, opt
+            log(f"train loop [{name}]: {secs:.1f} s; logged steps "
+                f"{[s for s, _ in losses]}; params sha256 "
+                f"{digests[name][:16]}")
+    snap, write, load = (meter.secs[n] for n in meter.NAMES)
+    log(f"train loop checkpoints: {len(write)} saves of "
+        f"{max(meter.bytes) / 1e9:.2f} GB; host snapshot "
+        f"{min(snap):.2f}-{max(snap):.2f} s, write {min(write):.2f}-"
+        f"{max(write):.2f} s ({max(meter.bytes) / 1e9 / max(write):.2f}-"
+        f"{max(meter.bytes) / 1e9 / min(write):.2f} GB/s), restore "
+        f"{[round(t, 2) for t in load]} s ({card_line()})")
+    require(len(set(digests.values())) == 1, f"train loop: digests differ "
+            f"{digests}")
+    require(dict(logged["fail@3"]) == dict(logged["clean"])
+            == dict(logged["no-service"]), "train loop: losses differ")
+    require([s for s, _ in logged["fail@3"]] == [0, 1, 2, 2, 3],
+            "train loop: the failed run did not resume at step 2")
+    require(len(load) == 1, "train loop: expected one restore")
+    grads = {}
+    batch = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED,
+                         device=device).batch_at(0)
+    for remat in ("full", "none"):
+        _free_card()
+        model = registry.build(cfg.scaled(remat=remat), device)
+        params, _ = model.init(TRAIN_SEED)
+        torch.cuda.reset_peak_memory_stats(device)
+        sync(device)
+        t0 = time.perf_counter()
+        (loss, _), g = steps.value_and_grad(model, params, batch)
+        sync(device)
+        secs = time.perf_counter() - t0
+        grads[remat] = (float(loss), _tree_digest(g))
+        log(f"train remat={remat}: loss {float(loss):.6f}, grads sha256 "
+            f"{grads[remat][1][:16]}, fwd + bwd {secs:.3f} s, peak "
+            f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f} GiB")
+        del params, g
+    require(grads["full"] == grads["none"], "train: remat full and none "
+            "gave different gradients")
+
+
+def phase_train_path(device) -> dict:
+    """The training substrate: AdamW and kernel A at the path's shapes
+    against the plain versions on the CPU / card first, then the smoke
+    width on the card against the CPU and the CLI, then - kernel A's
+    counts set to 0 just before and read just after - gemma-7b at full
+    width: 8 layers through ``make_train_step``, 2 layers through
+    ``train`` with its loop and checkpoints."""
+    from repro_torch.kernels import thundering_block as tb
+    phase_train_adamw(device)
+    phase_train_draws(device)
+    phase_train_smoke(device)
+    tb.reset_counts()
+    phase_train_full(device)
+    phase_train_loop(device)
+    launches = {"thundering_ctr": tb.thundering_ctr.launches}
+    plain_runs = (tb.thundering_ctr_plain.cuda_runs
+                  + tb.thundering_faithful_plain.cuda_runs)
+    log(f"train path: launches {launches}; plain versions run on the "
+        f"card: {plain_runs}")
+    require(launches["thundering_ctr"] > 0, "kernel A never launched on "
+                                            "the train path")
+    require(plain_runs == 0, "a plain version ran on a CUDA tensor")
+    return launches
+
+
 def run_phase(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2666,6 +3169,7 @@ def main() -> int:
         by_path["service"] = run_phase("service path", phase_service_path,
                                        device)
         by_path["serve"] = run_phase("serve path", phase_serve_path, device)
+        by_path["train"] = run_phase("train path", phase_train_path, device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -22,6 +22,11 @@ result, as the reference's bf16 dots do.
 Eager torch does not fuse casts as XLA does under ``jit``: ``embed``
 gathers rows, then casts them (the same values as casting the table
 first), while weight casts stay per call, as in the reference.
+
+Where the reference wraps a body in ``jax.checkpoint`` (each attention
+query chunk, each loss chunk, each layer under ``remat="full"``), the
+port wraps it in ``remat``: recomputed in the backward pass when a
+gradient is recorded, a plain call otherwise (serving).
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint as _checkpoint
 
 from repro_torch.core import engine, splitmix, u64
 from repro_torch.core import stream as tstream
@@ -54,6 +60,28 @@ def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
                         torch.full((), float("nan"), dtype=x.dtype,
                                    device=x.device), x)
     return x.to(dtype)
+
+
+def _records_grad(args) -> bool:
+    for a in args:
+        if isinstance(a, dict):
+            if _records_grad(a.values()):
+                return True
+        elif isinstance(a, torch.Tensor) and a.requires_grad:
+            return True
+    return False
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    (``jax.checkpoint``) when grad mode is on and a tensor argument (or a
+    dict of them) requires grad; a plain call otherwise.  The model
+    draws from counter streams, never torch's generator, so no RNG state
+    is stashed."""
+    if torch.is_grad_enabled() and _records_grad(args):
+        return _checkpoint(fn, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+    return fn(*args)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -172,7 +200,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qc -= 1
     tpos = torch.arange(T, device=q.device)
 
-    def chunk(qi, start):
+    def chunk(qi, k, v, start):
         logits = _attn_logits(qi, k, scale)  # (B, K, R, qc, T)
         if causal:
             qpos = torch.arange(qc, device=q.device) + (start + q_offset)
@@ -182,9 +210,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _attn_combine(w, v)
 
     if qc == S:
-        return chunk(q, 0)
-    return torch.cat([chunk(q[:, i:i + qc], i) for i in range(0, S, qc)],
-                     dim=1)
+        return chunk(q, k, v, 0)
+    # remat each chunk: otherwise the backward pass keeps every chunk's
+    # float32 logits, O(S^2) per layer
+    return torch.cat([remat(chunk, q[:, i:i + qc], k, v, i)
+                      for i in range(0, S, qc)], dim=1)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -272,8 +302,55 @@ def mlp(x: torch.Tensor, wi, wo, act: str, wg=None) -> torch.Tensor:
 # Embedding / unembedding / loss
 # ---------------------------------------------------------------------------
 
+def scatter_add_rows(rows: torch.Tensor, idx: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """(n, D) zeros with ``rows[j]`` added to row ``idx[j]``, the rows of
+    one index summed in the order of j on every device.
+
+    torch's own accumulating index-put (the backward of ``table[idx]``)
+    adds duplicates with atomics on the CPU, in an order that changes
+    from run to run.  Here the k-th occurrence of each index is added in
+    pass k: one ``index_add_`` per pass over distinct rows, so no two
+    adds meet.  The passes come from the indices on the host (one copy).
+    """
+    out = torch.zeros((n, rows.shape[-1]), dtype=rows.dtype,
+                      device=rows.device)
+    host = idx.reshape(-1).cpu().numpy()
+    order = np.argsort(host, kind="stable")
+    srt = host[order]
+    j = np.arange(len(srt))
+    run_start = np.maximum.accumulate(
+        np.where(np.r_[True, srt[1:] != srt[:-1]], j, 0))
+    rank = j - run_start                       # occurrence number
+    by_rank = np.argsort(rank, kind="stable")
+    pos = torch.from_numpy(order[by_rank]).to(rows.device)
+    dst = torch.from_numpy(srt[by_rank]).to(rows.device)
+    lo = 0
+    for count in np.bincount(rank):
+        sl = slice(lo, lo + int(count))
+        out.index_add_(0, dst[sl], rows.index_select(0, pos[sl]))
+        lo += int(count)
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    """``table[idx]`` with ``scatter_add_rows`` as its backward."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        g = grad.reshape(-1, grad.shape[-1])
+        return scatter_add_rows(g, idx, ctx.rows), None
+
+
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens.to(torch.int64)].to(COMPUTE_DTYPE)
+    return _Gather.apply(table, tokens.to(torch.int64)).to(COMPUTE_DTYPE)
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -298,8 +375,8 @@ def softmax_xent_chunked(h: torch.Tensor, table: torch.Tensor,
                          labels: torch.Tensor, n_chunks: int = 16
                          ) -> torch.Tensor:
     """Vocab-memory-bounded cross-entropy: unembed + xent evaluated one
-    sequence chunk at a time, so the (B, S, V) logits tensor is never
-    materialized (peak = one (B, S/nc, V) chunk).
+    sequence chunk at a time, each chunk remat'd, so the (B, S, V) logits
+    tensor is never materialized (peak = one (B, S/nc, V) chunk).
 
     h: (B, S, D) hidden states; table: (V, D); labels: (B, S) int32.
     """
@@ -308,11 +385,17 @@ def softmax_xent_chunked(h: torch.Tensor, table: torch.Tensor,
     while S % nc:
         nc -= 1
     sc = S // nc
+
+    def body(hx, table, lx):
+        logits = unembed(hx, table)                       # (B, sc, V) fp32
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lx.to(torch.int64)[..., None])[..., 0]
+        return torch.sum(logz - gold)
+
+    # remat each chunk: otherwise the backward pass keeps each chunk's
+    # logits and its float32 copy of the table
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, S, sc):
-        logits = unembed(h[:, i:i + sc], table)           # (B, sc, V) fp32
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(
-            logits, -1, labels[:, i:i + sc].to(torch.int64)[..., None])[..., 0]
-        total = total + torch.sum(logz - gold)
+        total = total + remat(body, h[:, i:i + sc], table,
+                              labels[:, i:i + sc])
     return total / (B * S)

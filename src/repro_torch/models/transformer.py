@@ -206,16 +206,25 @@ def lm_forward(cfg: ArchConfig, params, tokens, *, patches=None,
                return_hidden: bool = False):
     """Full forward. tokens (B, S) int32 -> (logits fp32 (B, S, V), aux);
     with ``return_hidden`` the final-norm hidden states replace logits
-    (for the chunked-xent loss path that never materializes logits)."""
+    (for the chunked-xent loss path that never materializes logits).
+    ``cfg.remat == "full"`` recomputes each layer in the backward pass."""
     h = _embed_inputs(cfg, params, tokens, patches)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device).expand(B, S)
+
+    def body(h, lp, lrng):
+        h, _, aux = _decoder_layer(cfg, h, lp, positions, lrng)
+        return h, aux
+
     auxes = []
     for li in range(cfg.n_layers):
         lrng = tstream.derive(rng, li) if rng is not None else None
-        h, _, aux = _decoder_layer(cfg, h, _layer(params["layers"], li),
-                                   positions, lrng)
+        lp = _layer(params["layers"], li)
+        if cfg.remat == "full":
+            h, aux = L.remat(body, h, lp, lrng)
+        else:
+            h, aux = body(h, lp, lrng)
         auxes.append(aux)
     h = _norm(cfg, h, params["final_norm"])
     aux = torch.mean(torch.stack(auxes))

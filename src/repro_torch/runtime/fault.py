@@ -1,6 +1,13 @@
-"""Scripted fault injection: the adversary of the serving and decode tiers.
+"""Fault-tolerant execution loop (checkpoint/restart around a training
+step) and scripted fault injection for the serving and decode tiers.
 
-  * ``SimulatedFailure`` - deterministic fault injection for tests.
+  * ``FaultTolerantLoop`` - wraps a step function with periodic async
+    checkpoints and restart-from-latest semantics.  Because the data
+    pipeline and all randomness are counter-addressed (pure functions of
+    (seed, step)), resume needs nothing beyond (params, opt, step) and
+    the lease ledger: no iterator state, no RNG state files.
+  * ``SimulatedFailure`` - deterministic fault injection for tests: raise
+    at step k, prove the restarted run converges to the same states.
   * ``FaultPlan`` / ``FaultInjector`` - scripted faults (kill / hang /
     drop-frame / slow) at specific request or decode-step indices, either
     written out explicitly (``FaultPlan.parse("kill@512")``) or drawn from
@@ -9,10 +16,6 @@
 
 A plan's JSON form (``to_json`` / ``from_json``) is the reference's, so a
 plan written by either package parses in the other.
-
-Not ported yet: ``FaultTolerantLoop`` (checkpoint/restart around a
-training step), which needs the ``checkpoint`` package; it stays in
-ROADMAP queue A item 6.
 """
 from __future__ import annotations
 
@@ -21,7 +24,13 @@ import json
 import random
 import re
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core import engine
+from repro_torch.optim.adamw import AdamWState
 
 
 class SimulatedFailure(RuntimeError):
@@ -194,3 +203,84 @@ class FaultInjector:
                 self._fired.add(i)
                 return spec
         return None
+
+
+@dataclasses.dataclass
+class FaultTolerantLoop:
+    """Checkpoint/restart around a step function; a restored state is
+    placed on ``device`` (the card unless given)."""
+    ckpt: CheckpointManager
+    save_every: int = 50
+    max_restarts: int = 3
+    device: Any = None
+
+    def run(self, *, init_state: Callable[[], Any], step_fn, num_steps: int,
+            fail_at: Optional[int] = None,
+            on_metrics=None,
+            extra_state: Optional[Callable[[], Dict[str, Any]]] = None,
+            on_restore: Optional[Callable[[Optional[Dict[str, Any]], int],
+                                          None]] = None) -> Any:
+        """Run ``num_steps`` with checkpoint/restart.
+
+        ``init_state()`` -> (params, opt_state); ``step_fn(params, opt,
+        step)`` -> (params, opt, metrics).  ``fail_at``: inject a
+        SimulatedFailure the first time that step is reached (tests).
+
+        ``extra_state()`` -> JSON-able dict saved with every checkpoint
+        (e.g. the BlockService lease ledger); ``on_restore(extra, step)``
+        is called once per (re)start BEFORE stepping - with the restored
+        extra dict, or ``None`` on a from-scratch start - so runtime
+        state outside (params, opt) rewinds with the model.
+        """
+        restarts = 0
+        failed_once = False
+        while True:
+            try:
+                state, start, extra = self._restore_or_init(init_state)
+                params, opt_state = state
+                if on_restore is not None:
+                    on_restore(extra, start)
+                for step in range(start, num_steps):
+                    if fail_at is not None and step == fail_at \
+                            and not failed_once:
+                        failed_once = True
+                        raise SimulatedFailure(f"injected at step {step}")
+                    params, opt_state, metrics = step_fn(params, opt_state,
+                                                         step)
+                    if on_metrics is not None:
+                        on_metrics(step, metrics)
+                    done = step + 1
+                    if done % self.save_every == 0 or done == num_steps:
+                        self.ckpt.save(done, {"params": params,
+                                              "opt": _opt_to_tree(opt_state)},
+                                       extra=extra_state() if extra_state
+                                       else None)
+                self.ckpt.wait()
+                return params, opt_state
+            except SimulatedFailure:
+                restarts += 1
+                if restarts > self.max_restarts:
+                    raise
+                # controller restarts us; loop resumes from latest ckpt
+
+    def _restore_or_init(self, init_state):
+        # a save still being written when a step failed lands first, so
+        # the restart point does not depend on the writer's timing
+        self.ckpt.wait()
+        latest = self.ckpt.latest()
+        if latest is None:
+            return init_state(), 0, None
+        tree, step, extra = self.ckpt.restore(
+            device=engine.resolve_device(self.device))
+        params = tree["params"]
+        opt_state = _opt_from_tree(tree["opt"])
+        return (params, opt_state), step, extra
+
+
+def _opt_to_tree(opt_state) -> Dict[str, Any]:
+    return {"step": opt_state.step, "m": opt_state.m, "v": opt_state.v}
+
+
+def _opt_from_tree(tree) -> AdamWState:
+    step = torch.as_tensor(tree["step"]).to("cpu", torch.int32)
+    return AdamWState(step.reshape(()), tree["m"], tree["v"])

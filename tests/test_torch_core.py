@@ -327,7 +327,9 @@ PORT_MODULES = [
     "repro_torch.models.convert", "repro_torch.data",
     "repro_torch.data.pipeline", "repro_torch.launch",
     "repro_torch.launch.train", "repro_torch.launch.steps",
-    "repro_torch.launch.serve"]
+    "repro_torch.launch.serve", "repro_torch.optim",
+    "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+    "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint"]
 
 
 def test_port_imports_neither_jax_nor_reference():
@@ -377,6 +379,13 @@ def test_port_imports_neither_jax_nor_reference():
             "'qwen2_vl_72b')).scaled(vision_prefix=4), batch=2, "
             "prompt_len=4, gen=3, temperature=0.8, device='cpu')\n"
             "assert toks.shape == (2, 3)\n"
+            "import tempfile\n"
+            "from repro_torch.runtime import FaultTolerantLoop\n"
+            "with tempfile.TemporaryDirectory() as d:\n"
+            "    p, o, l = train.train(train.smoke_config(get_config("
+            "'gemma_7b')), steps=1, global_batch=2, seq_len=8, ckpt_dir=d, "
+            "save_every=1, device='cpu')\n"
+            "assert int(o.step) == 1 and len(l) == 1\n"
             "assert not {'jax', 'repro', 'ml_dtypes'} & set(sys.modules)\n"
             "print('isolated')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -415,3 +424,42 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
                  lambda: ops.h_table(1, 2)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """``train``, the train CLI, ``make_train_step`` (through the model it
+    steps), the checkpoint loader and the loop's restore default to the
+    card and raise without one; ``device="cpu"`` runs them on the CPU."""
+    from repro_torch.checkpoint import CheckpointManager, load_checkpoint, \
+        save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import FaultTolerantLoop
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = train.smoke_config(get_config("glm4_9b"))
+    kw = dict(steps=1, global_batch=2, seq_len=8, save_every=1)
+    save_checkpoint(str(tmp_path / "c"), 1, {"x": torch.ones(2)})
+    loop = FaultTolerantLoop(CheckpointManager(str(tmp_path / "c")))
+    for call in (
+            lambda: train.train(cfg, ckpt_dir=str(tmp_path / "a"), **kw),
+            lambda: train.main(["--smoke", "--steps", "1", "--ckpt-dir",
+                                str(tmp_path / "b")]),
+            lambda: steps.make_train_step(registry.build(cfg)),
+            lambda: load_checkpoint(str(tmp_path / "c")),
+            lambda: loop._restore_or_init(lambda: None)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not (tmp_path / "a").exists() and not (tmp_path / "b").exists()
+    m = registry.build(cfg, "cpu")
+    step = steps.make_train_step(m)
+    params, _ = m.init(0)
+    batch = train.pipeline_for(cfg, 2, 8, 0, device="cpu").batch_at(0)
+    _, opt, met = step(params, adamw_init(params), batch, 0)
+    assert int(opt.step) == 1 and met["step"] == 1
+    tree, step_n, _ = load_checkpoint(str(tmp_path / "c"), device="cpu")
+    assert step_n == 1 and tree["x"].device.type == "cpu"
+    _, _, losses = train.train(cfg, ckpt_dir=str(tmp_path / "d"),
+                               device="cpu", **kw)
+    assert len(losses) == 1

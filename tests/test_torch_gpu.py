@@ -635,3 +635,51 @@ def test_serve_on_card_fused_equals_twopass(cuda):
     assert np.array_equal(fused, twopass)
     assert stats["sampler_calls_per_step"] == 1.0
     assert ga.fused_argmax_plain.cuda_runs == 0
+
+
+def test_train_on_card_is_deterministic_and_resumes(cuda, tmp_path):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import smoke_config, train
+    from repro_torch.models.common import flatten
+    cfg = smoke_config(get_config("gemma_7b"))
+    kw = dict(steps=4, global_batch=4, seq_len=64, save_every=2,
+              log_every=1, device=cuda)
+    tb.reset_counts()
+    runs = [train(cfg, ckpt_dir=str(tmp_path / name), fail_at=fail, **kw)
+            for name, fail in (("a", None), ("b", None), ("c", 3))]
+    assert tb.thundering_ctr.launches > 0
+    assert tb.thundering_ctr_plain.cuda_runs == 0
+    (pa, oa, la), (pb, ob, lb), (pc, _, lc) = runs
+    assert la == lb and dict(lc) == dict(la)
+    for k, v in flatten(pa).items():
+        for other in (pb, pc):
+            assert torch.equal(v.view(torch.int32),
+                               flatten(other)[k].view(torch.int32)), k
+    assert int(oa.step) == int(ob.step) == 4
+
+
+@pytest.mark.parametrize("clip_norm", [1e9, 1.0])
+def test_adamw_on_card_equals_cpu(cuda, clip_norm):
+    from repro_torch.optim import AdamWState, adamw_update, cosine_schedule
+    rng = np.random.default_rng(2)
+    shape = (1024, 768)
+    host = {k: torch.from_numpy(rng.normal(0, s, shape).astype(np.float32))
+            for k, s in (("p", 0.02), ("g", 1e-3), ("m", 1e-4), ("v", 1e-8))}
+    out = []
+    for dev in ("cpu", cuda):
+        # copies: the update is in place, and .to("cpu") of a CPU tensor
+        # is the tensor itself
+        st = AdamWState(torch.tensor(2, dtype=torch.int32),
+                        {"w": host["m"].to(dev, copy=True)},
+                        {"w": host["v"].abs().to(dev)})
+        p, st = adamw_update({"w": host["g"].to(dev)}, st,
+                             {"w": host["p"].to(dev, copy=True)},
+                             lr=cosine_schedule(3e-4, 100, 1000),
+                             clip_norm=clip_norm)
+        out.append([t["w"].cpu() for t in (p, st.m, st.v)])
+    for a, b in zip(*out):
+        d = (_ordered_f32(a) - _ordered_f32(b)).abs()
+        if clip_norm > 1e8:          # no clipping: bit-equal
+            assert int(d.max()) == 0
+        else:                        # the norm's float32 sum order differs
+            assert int(d.max()) <= 4
