@@ -36,7 +36,12 @@ through its CLI, gemma-7b at full width over 8 of its 28 layers through
 ``make_train_step`` (two runs from one seed, equal parameter digests) and
 over 2 layers through ``train`` with its loop and checkpoints (a failure
 at step 3 resumed, the service and ``--no-service`` paths, remat on and
-off - one digest each).
+off - one digest each).  Last the other model families: olmoe-1b-7b,
+granite-moe-3b-a800m, mamba2-2.7b, zamba2-7b and whisper-small served
+unmodified through ``launch.serve`` (kernel A draws every parameter,
+prompt and audio frame, kernel F samples every token), each against the
+CPU at smoke width, decode against forward at 2 layers of full width, a
+profile of olmoe and mamba2 decode steps and the serve CLI on mamba2.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -1365,12 +1370,24 @@ def phase_inference(device) -> dict:
     return launches
 
 
+def _ga_bound(V: int, B: int):
+    """Kernel F's bound at (V, B): (ms, "bytes" or "operations", the
+    bytes' ms, the operations' ms): the logits read once and B tokens,
+    leaf words and thresholds; its SASS counts per element."""
+    int_ops, all_ops = GA_OPS_PER_ELEMENT
+    n = V * B
+    t_bytes = (n * 4 + B * (8 + 4 + 4)) / HBM_BYTES_PER_S * 1e3
+    t_ops = max(n * int_ops / INT32_OPS_PER_S,
+                n * all_ops / DISPATCH_OPS_PER_S) * 1e3
+    return (max(t_bytes, t_ops),
+            "operations" if t_ops > t_bytes else "bytes", t_bytes, t_ops)
+
+
 def phase_inference_timing(device) -> list:
     """Kernel F at (V, B) = (256000, 64) and (256000, 256): ms, elements
     per s, bound, plain ms, and two torch samplers on the same logits."""
     import torch
     from repro_torch.inference.kernels import gumbel_argmax as ga
-    int_ops, all_ops = GA_OPS_PER_ELEMENT
     rows = []
     log("inference timing (CUDA events, tokens preallocated):")
     gen = torch.Generator(device=device)
@@ -1395,12 +1412,7 @@ def phase_inference_timing(device) -> list:
         lib_ms = time_cuda(philox, reps=20)
         multi_ms = time_cuda(lambda: torch.multinomial(
             torch.softmax(logits * 1.0, -1), 1, generator=gen), reps=20)
-        n_bytes = n * 4 + B * (8 + 4 + 4)
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = max(n * int_ops / INT32_OPS_PER_S,
-                    n * all_ops / DISPATCH_OPS_PER_S) * 1e3
-        b_ms, b_by = max(t_bytes, t_ops), ("operations" if t_ops > t_bytes
-                                           else "bytes")
+        b_ms, b_by, t_bytes, t_ops = _ga_bound(V, B)
         log(f"  gumbel_argmax (V, B) = ({V}, {B}): {ms:.4f} ms"
             f"{_was(f'gumbel_argmax B={B}')} = "
             f"{n / (ms * 1e-3) / 1e9:.1f} G elements/s, "
@@ -2176,13 +2188,15 @@ def _ordered_f32(t):
 
 
 def _greedy_teacher_forced(model, params, prompts, gen, tokens=None):
-    """Prefill ``prompts`` and decode ``gen`` - 1 steps; each step's input
-    token is ``tokens[:, i]`` when given, else this run's own argmax.
-    Returns the (B, gen, V) float32 logits on the host and the tokens."""
+    """Prefill the batch ``prompts`` (its (B, P) "tokens", and "frames"
+    for an encoder-decoder) and decode ``gen`` - 1 steps; each step's
+    input token is ``tokens[:, i]`` when given, else this run's own
+    argmax.  Returns the (B, gen, V) float32 logits on the host and the
+    tokens."""
     import torch
     from repro_torch.launch import serve as srv
-    B, P = prompts.shape
-    logits, pcache = model.prefill(params, {"tokens": prompts})
+    B, P = prompts["tokens"].shape
+    logits, pcache = model.prefill(params, prompts)
     cache = srv._graft(model.cfg, model.init_cache(B, P + gen), pcache, P)
     out, toks = [logits.cpu()], []
     for i in range(gen):
@@ -2251,13 +2265,61 @@ def phase_serve_draws(device) -> None:
                         SERVE_BATCH * (SERVE_PROMPT + 1))
 
 
-def phase_serve_plain(device) -> None:
-    """The serving path at ``launch.train.smoke_config(gemma_7b)`` width
-    on the card against the same code on the CPU (which the CPU tests hold
-    against the reference): init within 8 ULP per parameter; prefill and
-    decode logits on equal weights within ``SERVE_LOGIT_ATOL``; greedy
-    tokens equal wherever the CPU's top-2 margin exceeds twice that.
-    Runs before the path's counts are reset."""
+class _MoeRoutes:
+    """While active, records each ``moe.route`` call: ``calls`` holds,
+    per call, (the chosen experts (tokens, k) sorted, the (tokens, k) mask
+    of choices dropped past the capacity, the group size), tokens in the
+    call's flat order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._real = real = moe.route
+        self.calls = []
+
+        def recorded(probs, k, capacity):
+            out = real(probs, k, capacity)
+            self.calls.append((out[1].reshape(-1, k).sort(-1).values.cpu(),
+                               (out[2] == probs.shape[-1] * capacity)
+                               .reshape(-1, k).cpu(), probs.shape[1]))
+            return out
+        moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._real
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def _rows_routed_alike(a, b, rows: int):
+    """(rows whose MoE routes agree in the two recordings, tokens routed
+    differently): a row is left out when a token of a group it shares
+    took another expert set in either run (that moves the group's
+    capacity slots)."""
+    import torch
+    ok = torch.ones(rows, dtype=torch.bool)
+    flipped = 0
+    for (ea, _, gs), (eb, _, _) in zip(a, b):
+        diff = (ea != eb).any(-1)
+        group = diff.reshape(-1, gs).any(-1).repeat_interleave(gs)
+        ok[(torch.arange(diff.numel()) // (diff.numel() // rows))[group]] = \
+            False
+        flipped += int(diff.sum())
+    return ok, flipped
+
+
+def _card_against_cpu(arch: str, device, label: str) -> None:
+    """``arch`` at ``launch.train.smoke_config`` width on the card against
+    the same code on the CPU (which the CPU tests hold against the
+    reference): init within 8 ULP per parameter; prefill and decode
+    logits on equal weights within ``SERVE_LOGIT_ATOL``; greedy tokens
+    equal wherever the CPU's top-2 margin exceeds twice that.  An MoE row
+    whose router chose another expert set on the card (a near-tie: the
+    two devices sum the router's products in other orders) is counted
+    and left out; at least half the rows must remain."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.train import pipeline_for, smoke_config
@@ -2265,7 +2327,7 @@ def phase_serve_plain(device) -> None:
     from repro_torch.models.common import flatten, unflatten
     t0 = time.perf_counter()
     cpu = torch.device("cpu")
-    cfg = smoke_config(get_config(SERVE_ARCH))
+    cfg = smoke_config(get_config(arch))
     m_cpu, m_card = registry.build(cfg, cpu), registry.build(cfg, device)
     p_cpu = flatten(m_cpu.init(SERVE_SEED)[0])
     p_card = flatten(m_card.init(SERVE_SEED)[0])
@@ -2273,37 +2335,52 @@ def phase_serve_plain(device) -> None:
     for path, want in p_cpu.items():
         got = p_card[path].cpu()
         if not want.any():
-            require(not got.any(), f"serve plain check: {path} is not zero")
+            require(not got.any(), f"{label}: {path} is not zero")
             exact_zero += 1
             continue
         worst_ulp = max(worst_ulp, int((_ordered_f32(got)
                                         - _ordered_f32(want)).abs().max()))
-    require(worst_ulp <= SERVE_INIT_ULP, f"serve plain check: init is "
+    require(worst_ulp <= SERVE_INIT_ULP, f"{label}: init is "
             f"{worst_ulp} ULP from the CPU's (limit {SERVE_INIT_ULP})")
     same = unflatten({k: v.to(device) for k, v in p_cpu.items()})
     B, P, G = 8, 32, 16
-    prompts = pipeline_for(cfg, B, P, SERVE_SEED,
-                           device=cpu).batch_at(0)["tokens"]
-    want, toks = _greedy_teacher_forced(m_cpu, unflatten(p_cpu), prompts, G)
-    got, _ = _greedy_teacher_forced(m_card, same, prompts.to(device), G,
-                                    tokens=toks)
+    prompts = pipeline_for(cfg, B, P, SERVE_SEED, device=cpu).batch_at(0)
+    prompts.pop("labels")
+    with _MoeRoutes() as on_cpu:
+        want, toks = _greedy_teacher_forced(m_cpu, unflatten(p_cpu),
+                                            prompts, G)
+    with _MoeRoutes() as on_card:
+        got, _ = _greedy_teacher_forced(
+            m_card, same, {k: v.to(device) for k, v in prompts.items()}, G,
+            tokens=toks)
+    rows, flipped = _rows_routed_alike(on_cpu.calls, on_card.calls, B)
+    got, want = got[rows], want[rows]
     err = float((got - want).abs().max())
     top2 = torch.topk(want, 2, dim=-1).values
     sure = (top2[..., 0] - top2[..., 1]) > 2 * SERVE_LOGIT_ATOL
     agree = torch.argmax(got, -1) == torch.argmax(want, -1)
-    log(f"serve plain check (smoke width {cfg.d_model}/{cfg.n_layers} "
+    log(f"{label} ({cfg.name} at smoke width {cfg.d_model}/{cfg.n_layers} "
         f"layers/V {cfg.vocab}): init within {worst_ulp} ULP of the CPU "
         f"({len(p_cpu) - exact_zero} drawn tensors, {exact_zero} zeros "
         f"exact); prefill + {G - 1} decode logits on equal weights max "
         f"|card - cpu| {err:.6f} (limit {SERVE_LOGIT_ATOL}); greedy tokens "
         f"equal at {int((agree & sure).sum())} of {int(sure.sum())} "
         f"positions with a top-2 margin > {2 * SERVE_LOGIT_ATOL} "
-        f"({int(agree.sum())} of {agree.numel()} overall); "
-        f"{time.perf_counter() - t0:.1f} s")
-    require(err <= SERVE_LOGIT_ATOL, f"serve plain check: logits {err} "
-            f"from the CPU's")
-    require(bool(agree[sure].all()), "serve plain check: a greedy token "
-            "with a clear margin differs from the CPU's")
+        f"({int(agree.sum())} of {agree.numel()} overall); MoE tokens "
+        f"routed otherwise on the card {flipped}, rows held {int(rows.sum())}"
+        f" of {B}; {time.perf_counter() - t0:.1f} s")
+    require(2 * int(rows.sum()) >= B, f"{label}: {B - int(rows.sum())} of "
+            f"{B} rows routed otherwise on the card")
+    require(err <= SERVE_LOGIT_ATOL, f"{label}: logits {err} from the "
+            f"CPU's")
+    require(bool(agree[sure].all()), f"{label}: a greedy token with a "
+            f"clear margin differs from the CPU's")
+
+
+def phase_serve_plain(device) -> None:
+    """The serving path at smoke width on the card against the CPU
+    (``_card_against_cpu``).  Runs before the path's counts are reset."""
+    _card_against_cpu(SERVE_ARCH, device, "serve plain check")
 
 
 def _serve_report(label: str, toks, stats, peak=None) -> None:
@@ -2329,14 +2406,14 @@ def _free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_serve_cli(device, want: str) -> None:
-    """``python -m repro_torch.launch.serve`` at full width in a
-    subprocess: its 8 tokens per row give the in-process run's digest of
+def phase_serve_cli(device, want: str, arch: str = SERVE_ARCH) -> None:
+    """``python -m repro_torch.launch.serve --arch arch`` at full width in
+    a subprocess: its 8 tokens per row give the in-process run's digest of
     the first 8 steps."""
     import os
     _free_card()
     args = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-            SERVE_ARCH, "--batch", str(SERVE_BATCH), "--prompt-len",
+            arch, "--batch", str(SERVE_BATCH), "--prompt-len",
             str(SERVE_PROMPT), "--gen", str(SERVE_CLI_GEN), "--temperature",
             str(SERVE_TEMPERATURE)]
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -2348,7 +2425,7 @@ def phase_serve_cli(device, want: str) -> None:
     got = re.search(r"tokens sha256: ([0-9a-f]{64})", out.stdout)
     require(got is not None, f"the serve CLI printed no digest: "
             f"{out.stdout[-2000:]}")
-    log(f"serve CLI (gen {SERVE_CLI_GEN}, subprocess): digest "
+    log(f"serve CLI ({arch}, gen {SERVE_CLI_GEN}, subprocess): digest "
         f"{got.group(1)[:16]} == in-process first {SERVE_CLI_GEN} steps "
         f"{want[:16]}; {time.perf_counter() - t0:.1f} s; "
         + " ".join(out.stdout.strip().splitlines()[:2]))
@@ -2492,7 +2569,7 @@ def _serve_profile(model, params, device) -> None:
         log("serve profile: not measured (the profiler recorded no device "
             "time)")
         return
-    log(f"serve profile ({G} fused decode steps at (B, V) = "
+    log(f"serve profile ({cfg.name}, {G} fused decode steps at (B, V) = "
         f"({SERVE_BATCH}, {cfg.vocab}), ctx {P + G}): wall "
         f"{wall_us / 1e3:.3f} ms = {wall_us / G / 1e3:.3f} ms/step; device "
         f"busy {busy / 1e3:.3f} ms = {busy / wall_us * 100:.1f} % (idle "
@@ -3100,6 +3177,258 @@ def phase_train_path(device) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the families path: the moe, ssm, hybrid and encdec configs served
+# unmodified through kernels A and F
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("olmoe_1b_7b", "granite_moe_3b", "mamba2_2p7b", "zamba2_7b",
+                "whisper_small")
+FAMILY_GEN = 16
+FAMILY_CLI_ARCH = "mamba2_2p7b"
+FAMILY_PROFILE_ARCHS = ("olmoe_1b_7b", "mamba2_2p7b")
+# decode against forward at the published width: 8 rows x 16 positions.
+# Forward groups an MoE layer's tokens 4 at a time and decode 2 at a
+# time, each with capacity 1 per expert at olmoe's 64 experts x top-8:
+# at the published capacity factor every position drops a choice in one
+# of the two, and the two drop different ones by design (on an H100 the
+# served prompts dropped 52 % of their prefill choices).  So the check
+# raises the capacity factor to E / k, where no choice drops, and holds
+# every position
+FAMILY_ROWS = 8
+# kernel A at the path's draw shapes: olmoe's expert matrix (the largest
+# tensor of the five configs) in its first and its ragged last 2^28 chunk
+FAMILY_DRAWS = (("olmoe_1b_7b", "layers/moe_wg", 0),
+                ("olmoe_1b_7b", "layers/moe_wg", -1))
+
+
+def phase_families_draws(device) -> None:
+    """Kernel A against its plain version, bit for bit, at the path's
+    draw shapes: ``FAMILY_DRAWS`` at the counters ``common.trunc_normal``
+    gives them, and the uniforms under whisper-small's (64, 1500, 768)
+    frames of ``pipeline_for(...).batch_at(0)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import stream as tstream
+    from repro_torch.launch.train import pipeline_for
+    from repro_torch.models import registry
+    from repro_torch.models.common import PARAM_CHUNK, flatten, param_stream
+    for arch, path, chunk in FAMILY_DRAWS:
+        shapes = flatten(registry.build(get_config(arch), "meta")
+                         .init(SERVE_SEED)[0])
+        n = math.prod(shapes[path].shape)
+        lo = (chunk % -(-n // PARAM_CHUNK)) * PARAM_CHUNK
+        m = min(PARAM_CHUNK, n - lo)
+        s = tstream.advance(param_stream(SERVE_SEED, path, device), lo)
+        _draw_against_plain(f"{arch} {path} chunk {chunk} of "
+                            f"{-(-n // PARAM_CHUNK)} ({n} elements)", s, m)
+    cfg = get_config("whisper_small")
+    pipe = pipeline_for(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_SEED,
+                        device=device)
+    est = tstream.derive(tstream.derive(pipe._root, 0), 0xE57A)
+    _draw_against_plain(f"whisper frames ({SERVE_BATCH}, {cfg.enc_ctx}, "
+                        f"{cfg.d_model})", est,
+                        SERVE_BATCH * cfg.enc_ctx * cfg.d_model)
+
+
+def phase_families_sampler(device) -> None:
+    """Kernel F against its plain version at each config's vocabulary and
+    batch 64 (every (inv_temp, top_k) option, counters below and past
+    2**32; the odd vocabularies end in a ragged V tile), then its time
+    there beside its bound."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.inference.kernels import gumbel_argmax as ga
+    B = SERVE_BATCH
+    for arch in FAMILY_ARCHS:
+        V = get_config(arch).vocab
+        logits, h, x0 = _ga_case(V, B, device)
+        for inv_temp, top_k in INF_OPTIONS:
+            th = (torch.topk(logits, top_k, dim=-1).values[:, -1] if top_k
+                  else torch.full((B,), float("-inf"), device=device))
+            for ctr in (977, 2 ** 32 + 12345):
+                _ga_check(f"{arch} (V, B) = ({V}, {B}) inv_temp "
+                          f"{inv_temp} top_k {top_k} ctr {ctr}", logits, h,
+                          x0, ctr, th, inv_temp)
+        th = torch.full((B,), float("-inf"), device=device)
+        out = torch.empty(B, dtype=torch.int32, device=device)
+        ms = time_cuda(lambda: ga.fused_argmax(logits, h, x0, 977, th,
+                                               inv_temp=1.0, out=out),
+                       reps=50)
+        b_ms, b_by, _, _ = _ga_bound(V, B)
+        log(f"kernel F at {arch}'s (V, B) = ({V}, {B}): equal to the plain "
+            f"version ({len(INF_OPTIONS)} options x 2 counters); {ms:.4f} "
+            f"ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / ms * 100:.1f}% of "
+            f"the bound's speed) ({card_line()})")
+        del logits
+
+
+def _family_decode_vs_forward(cfg, device) -> None:
+    """Decode logits against forward's on ``FAMILY_ROWS`` x 16 positions
+    at the published width, cut to 2 layers (zamba2: its first group of
+    ``attn_every`` mamba layers with the shared block, and one trailing
+    layer; an MoE config with its capacity factor raised to E / k, so
+    that no choice drops): within the reference's slack (atol 0.15, rtol
+    0.05) at every position."""
+    import torch
+    from repro_torch.launch.train import pipeline_for
+    from repro_torch.models import registry
+    t0 = time.perf_counter()
+    depth = cfg.attn_every + 1 if cfg.family == "hybrid" else 2
+    cut = cfg.scaled(n_layers=depth, enc_layers=min(cfg.enc_layers, 2))
+    if cfg.family == "moe":
+        cut = cut.scaled(capacity_factor=cfg.n_experts / cfg.top_k)
+    model = registry.build(cut, device)
+    params, _ = model.init(SERVE_SEED)
+    R, S = FAMILY_ROWS, SERVE_POSITIONS
+    batch = pipeline_for(cut, R, S, SERVE_SEED, device=device).batch_at(0)
+    batch.pop("labels")
+    toks = batch["tokens"]
+    with _MoeRoutes() as drops:
+        full, _ = model.forward(params, batch)
+        fwd = drops.take()
+        cache = model.init_cache(R, S)
+        if cut.family == "encdec":     # cross K/V from a 1-token prefill
+            pc = model.prefill(params, dict(batch, tokens=toks[:, :1]))[1]
+            cache = cache[:2] + pc[2:]
+            drops.take()
+        dec = []
+        for pos in range(S):
+            lg, cache = model.decode(params, cache, toks[:, pos:pos + 1], pos)
+            dec.append(lg)
+        steps = drops.take()
+    dec = torch.stack(dec, 1)
+    pairs = sum(int(m.sum()) for _, m, _ in fwd + steps)
+    excess = _excess(dec, full)
+    finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
+    log(f"  decode vs forward ({cfg.name}, {depth} layers at full width"
+        f"{', capacity factor %g' % cut.capacity_factor if cut.n_experts else ''}"
+        f", {R} rows x {S} positions, logits up to "
+        f"{float(full.abs().max()):.3f}): dropped (token, choice) pairs "
+        f"{pairs}; max |decode - forward| {float((dec - full).abs().max()):.5f}"
+        f", excess over the slack {excess:.5f} (limit {SERVE_SLACK_ATOL}); "
+        f"finite {finite}; {time.perf_counter() - t0:.1f} s")
+    require(finite, f"{cfg.name}: non-finite logits in decode against "
+            f"forward")
+    require(pairs == 0, f"{cfg.name}: {pairs} choices dropped in decode "
+            f"against forward")
+    require(excess <= SERVE_SLACK_ATOL, f"{cfg.name}: decode logits leave "
+            f"the reference's slack around forward's")
+    del model, params, cache
+
+
+def phase_families_serve(device) -> dict:
+    """Each of ``FAMILY_ARCHS`` unmodified through ``launch.serve.serve``
+    at batch 64, prompt 128, 16 tokens, temperature 0.8 on the fused
+    path, twice (equal tokens; olmoe also two-pass and greedy), with
+    kernel A and F's counts set to 0 just before and read just after;
+    then decode against forward at 2 layers of each published width.
+    Returns the counts and the in-process tokens of each arch."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.inference.kernels import gumbel_argmax as ga
+    from repro_torch.kernels import thundering_block as tb
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import registry
+    from repro_torch.models.common import flatten
+    total = torch.cuda.get_device_properties(device).total_memory
+    kw = dict(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=FAMILY_GEN,
+              seed=SERVE_SEED, device=device)
+    tb.reset_counts()
+    ga.reset_counts()
+    fused = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        shapes = flatten(registry.build(cfg, "meta").init(0)[0])
+        n_params = sum(v.numel() for v in shapes.values())
+        log(f"families: {cfg.name} [{cfg.family}] unmodified ({cfg.n_layers} "
+            f"layers, d_model {cfg.d_model}, vocab {cfg.vocab}): {n_params} "
+            f"parameters, {n_params * 4 / 1e9:.1f} GB in float32; batch "
+            f"{SERVE_BATCH}, prompt {SERVE_PROMPT}, {FAMILY_GEN} tokens")
+        runs = [("fused", SERVE_TEMPERATURE, "fused"),
+                ("fused again", SERVE_TEMPERATURE, "fused")]
+        if arch == "olmoe_1b_7b":
+            runs += [("two-pass", SERVE_TEMPERATURE, "cuda"),
+                     ("greedy", 0.0, "fused")]
+        toks_of = {}
+        for label, temp, path in runs:
+            _free_card()
+            torch.cuda.reset_peak_memory_stats(device)
+            f0 = ga.fused_argmax.launches
+            with _MoeRoutes() as drops:
+                toks, stats = srv.serve(cfg, temperature=temp,
+                                        sampler_path=path, **kw)
+            peak = torch.cuda.max_memory_allocated(device)
+            toks_of[label] = toks
+            _serve_report(f"{arch} {label}", toks, stats, peak)
+            if drops.calls and label == "fused":
+                masks = [m for _, m, _ in drops.calls]
+                pre, dec = masks[:cfg.n_layers], masks[cfg.n_layers:]
+                log(f"  {arch}: dropped (token, choice) pairs past the "
+                    f"capacity: prefill {sum(int(m.sum()) for m in pre)} of "
+                    f"{sum(m.numel() for m in pre)}, decode "
+                    f"{sum(int(m.sum()) for m in dec)} of "
+                    f"{sum(m.numel() for m in dec)}")
+            require(toks.shape == (SERVE_BATCH, FAMILY_GEN)
+                    and toks.dtype == np.int32 and toks.min() >= 0
+                    and toks.max() < cfg.vocab, f"{arch} {label}: tokens "
+                    f"{toks.shape} {toks.dtype} outside [0, {cfg.vocab})")
+            require(peak < total, f"{arch} {label}: peak {peak} >= {total}")
+            f_launches = ga.fused_argmax.launches - f0
+            want_f = FAMILY_GEN if temp > 0 and path == "fused" else 0
+            require(f_launches == want_f, f"{arch} {label}: kernel F "
+                    f"launched {f_launches} times, not {want_f}")
+        require(np.array_equal(toks_of["fused"], toks_of["fused again"]),
+                f"{arch}: two in-process runs gave different tokens")
+        if "two-pass" in toks_of:
+            require(np.array_equal(toks_of["fused"], toks_of["two-pass"]),
+                    f"{arch}: the fused and two-pass samplers differ")
+            log(f"  {arch}: fused = two-pass tokens; greedy = fused at "
+                f"{int((toks_of['greedy'] == toks_of['fused']).sum())} of "
+                f"{toks_of['greedy'].size}")
+        fused[arch] = toks_of["fused"]
+    launches = {"thundering_ctr": tb.thundering_ctr.launches,
+                "gumbel_argmax": ga.fused_argmax.launches}
+    plain_runs = (ga.fused_argmax_plain.cuda_runs
+                  + tb.thundering_ctr_plain.cuda_runs
+                  + tb.thundering_faithful_plain.cuda_runs)
+    log(f"families path: launches {launches}; plain versions run on the "
+        f"card: {plain_runs}")
+    require(launches["thundering_ctr"] > 0 and launches["gumbel_argmax"] > 0,
+            "kernel A or F never launched on the families path")
+    require(plain_runs == 0, "a plain version ran on a CUDA tensor")
+    for arch in FAMILY_ARCHS:
+        _free_card()
+        _family_decode_vs_forward(get_config(arch), device)
+    return launches, fused
+
+
+def phase_families_path(device) -> dict:
+    """The moe, ssm, hybrid and encdec families: (a) kernel A at the
+    path's draw shapes and kernel F at each config's vocabulary against
+    the plain versions; (b) each config at smoke width on the card
+    against the CPU; (c) each served unmodified at full width, decode
+    against forward at 2 layers; (d) a profile of 8 decode steps of olmoe
+    and mamba2; (e) the serve CLI on mamba2 in a subprocess."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import registry
+    phase_families_draws(device)
+    phase_families_sampler(device)
+    for arch in FAMILY_ARCHS:
+        _card_against_cpu(arch, device, "families plain check")
+    launches, fused = phase_families_serve(device)
+    for arch in FAMILY_PROFILE_ARCHS:
+        _free_card()
+        model = registry.build(get_config(arch), device)
+        params, _ = model.init(SERVE_SEED)
+        _serve_profile(model, params, device)
+        del model, params
+    phase_serve_cli(device, srv.tokens_digest(
+        fused[FAMILY_CLI_ARCH][:, :SERVE_CLI_GEN]), FAMILY_CLI_ARCH)
+    return launches
+
+
 def run_phase(name: str, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -3170,6 +3499,8 @@ def main() -> int:
                                        device)
         by_path["serve"] = run_phase("serve path", phase_serve_path, device)
         by_path["train"] = run_phase("train path", phase_train_path, device)
+        by_path["families"] = run_phase("families path", phase_families_path,
+                                        device)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -10,11 +10,14 @@ to token ids in one launch.  ``temperature 0`` stays the pure greedy
 argmax and consumes no randomness at all.
 
 The model runs on the card unless ``device`` / ``--device`` names
-another; ``registry.build`` serves the ``dense`` and ``vlm`` families.
+another; ``registry.build`` serves every family (``dense``, ``moe``,
+``vlm``, ``encdec``, ``ssm``, ``hybrid``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch glm4_9b --smoke --batch 4 --prompt-len 32 --gen 16 \\
       --temperature 0.8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch mamba2_2p7b --smoke     # or olmoe_1b_7b, zamba2_7b, ...
 """
 from __future__ import annotations
 
@@ -106,9 +109,10 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
 
     t0 = time.perf_counter()
     logits, pcache = prefill(params, prompts)
-    # copy the prefix kv into a full-length cache
-    cache = model.init_cache(batch, total_ctx)
-    cache = _graft(cfg, cache, pcache, prompt_len)
+    # copy the prefix kv into a full-length cache (attention families);
+    # an ssm cache is position-free: the prefill cache is the decode cache
+    cache = pcache if cfg.family == "ssm" else _graft(
+        cfg, model.init_cache(batch, total_ctx), pcache, prompt_len)
     del pcache
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -141,11 +145,20 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
 
 
 def _graft(cfg, cache, pcache, prompt_len):
-    """Copy prefill results into the zeroed full-length decode cache (in
-    place; the served families' caches are (k, v) pairs)."""
-    for full, pre in zip(cache, pcache):
+    """Copy prefill results into the zeroed full-length decode cache, in
+    place: the self-attention (k, v) at positions [0, prompt_len); the
+    rest of an encdec (cross k, v) or hybrid (mamba states, conv tails)
+    cache is the prefill's own."""
+    fam = cfg.family
+    if fam == "ssm":
+        return pcache
+    for full, pre in zip(cache[:2], pcache[:2]):
         full[:, :, :prompt_len] = L.cast(pre, full.dtype)
-    return cache
+    if fam in ("dense", "moe", "vlm"):
+        return cache
+    if fam in ("encdec", "hybrid"):
+        return tuple(cache[:2]) + tuple(pcache[2:])
+    raise ValueError(fam)
 
 
 def tokens_digest(toks: np.ndarray) -> str:
@@ -156,7 +169,8 @@ def tokens_digest(toks: np.ndarray) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="glm4_9b")
+    ap.add_argument("--arch", default="glm4_9b",
+                    help="any config of repro_torch.configs (every family)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -9,9 +9,8 @@ unless the caller passes another) with:
   decode(params, cache, token, pos) -> (logits, cache), cache in place
   init_cache(batch, ctx)      -> zeroed decode cache
 
-The port builds the ``dense`` and ``vlm`` families; ``moe``, ``encdec``,
-``ssm`` and ``hybrid`` raise ``NotImplementedError`` until their ROADMAP
-item ports them.
+The port builds every family of the reference: ``dense``, ``moe``,
+``vlm``, ``encdec``, ``ssm`` and ``hybrid``.
 """
 from __future__ import annotations
 
@@ -22,13 +21,15 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core import stream as tstream
+from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import layers as L
+from repro_torch.models import ssm_lm
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ArchConfig
 
 AUX_WEIGHT = 0.01  # MoE aux-loss weight
 
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
 
 
 @dataclasses.dataclass
@@ -70,29 +71,89 @@ def _kv_dt(cfg):
 def build(cfg: ArchConfig, device=None) -> Model:
     fam = cfg.family
     if fam not in FAMILIES:
-        if fam in ("moe", "encdec", "ssm", "hybrid"):
-            raise tf.not_ported(f"registry.build for the {fam} family")
         raise ValueError(f"unknown family {fam}")
     dev = engine.resolve_device(device)
 
+    def zeros(shape, dtype=None):
+        return torch.zeros(shape, dtype=dtype or L.COMPUTE_DTYPE, device=dev)
+
+    if fam in ("dense", "moe", "vlm"):
+        def forward(params, batch, rng=None, return_hidden=False):
+            return tf.lm_forward(cfg, params, batch["tokens"],
+                                 patches=batch.get("patches"), rng=rng,
+                                 return_hidden=return_hidden)
+
+        def prefill(params, batch):
+            return tf.lm_prefill(cfg, params, batch["tokens"],
+                                 patches=batch.get("patches"))
+
+        def decode(params, cache, token, pos):
+            return tf.lm_decode(cfg, params, cache, token, pos)
+
+        def init_cache(batch, ctx):
+            shape = (cfg.n_layers, batch, ctx, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            return zeros(shape, _kv_dt(cfg)), zeros(shape, _kv_dt(cfg))
+
+        return Model(cfg, lambda seed: tf.init_lm(cfg, seed, device=dev),
+                     forward, _xent_loss(cfg, forward, _lm_table(cfg)),
+                     prefill, decode, init_cache, dev)
+
+    if fam == "encdec":
+        def forward(params, batch, rng=None, return_hidden=False):
+            return tf.encdec_forward(cfg, params, batch["frames"],
+                                     batch["tokens"], rng=rng,
+                                     return_hidden=return_hidden)
+
+        def prefill(params, batch):
+            return tf.encdec_prefill(cfg, params, batch["frames"],
+                                     batch["tokens"])
+
+        def decode(params, cache, token, pos):
+            return tf.encdec_decode(cfg, params, cache, token, pos)
+
+        def init_cache(batch, ctx):
+            K, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+            self_shape = (cfg.n_layers, batch, ctx, K, hd)
+            cross_shape = (cfg.n_layers, batch, cfg.enc_ctx, K, hd)
+            return (zeros(self_shape), zeros(self_shape),
+                    zeros(cross_shape), zeros(cross_shape))
+
+        return Model(cfg, lambda seed: tf.init_encdec(cfg, seed, device=dev),
+                     forward, _xent_loss(cfg, forward, lambda p: p["embed"]),
+                     prefill, decode, init_cache, dev)
+
+    if fam == "ssm":
+        def forward(params, batch, rng=None, return_hidden=False):
+            return ssm_lm.ssm_forward(cfg, params, batch["tokens"], rng=rng,
+                                      return_hidden=return_hidden)
+
+        def prefill(params, batch):
+            return ssm_lm.ssm_prefill(cfg, params, batch["tokens"])
+
+        def decode(params, cache, token, pos):
+            return ssm_lm.ssm_decode(cfg, params, cache, token, pos)
+
+        def init_cache(batch, ctx):
+            return ssm_lm.init_ssm_cache(cfg, batch, dev)
+
+        return Model(cfg, lambda seed: ssm_lm.init_ssm_lm(cfg, seed, dev),
+                     forward, _xent_loss(cfg, forward, _lm_table(cfg)),
+                     prefill, decode, init_cache, dev)
+
     def forward(params, batch, rng=None, return_hidden=False):
-        return tf.lm_forward(cfg, params, batch["tokens"],
-                             patches=batch.get("patches"), rng=rng,
-                             return_hidden=return_hidden)
+        return hybrid_mod.hybrid_forward(cfg, params, batch["tokens"],
+                                         rng=rng, return_hidden=return_hidden)
 
     def prefill(params, batch):
-        return tf.lm_prefill(cfg, params, batch["tokens"],
-                             patches=batch.get("patches"))
+        return hybrid_mod.hybrid_prefill(cfg, params, batch["tokens"])
 
     def decode(params, cache, token, pos):
-        return tf.lm_decode(cfg, params, cache, token, pos)
+        return hybrid_mod.hybrid_decode(cfg, params, cache, token, pos)
 
     def init_cache(batch, ctx):
-        shape = (cfg.n_layers, batch, ctx, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
-        return (torch.zeros(shape, dtype=_kv_dt(cfg), device=dev),
-                torch.zeros(shape, dtype=_kv_dt(cfg), device=dev))
+        return hybrid_mod.init_hybrid_cache(cfg, batch, ctx, dev)
 
-    return Model(cfg, lambda seed: tf.init_lm(cfg, seed, device=dev),
-                 forward, _xent_loss(cfg, forward, _lm_table(cfg)), prefill,
-                 decode, init_cache, dev)
+    return Model(cfg, lambda seed: hybrid_mod.init_hybrid(cfg, seed, dev),
+                 forward, _xent_loss(cfg, forward, lambda p: p["embed"]),
+                 prefill, decode, init_cache, dev)

@@ -1,15 +1,14 @@
-"""Decoder-only LM (dense / VLM backbone) as plain torch functions.
+"""Decoder-only LM (dense / MoE / VLM backbone) and encoder-decoder
+(whisper-family) models as plain torch functions.
 
 Parameter layout is the reference's: every per-layer tensor is stacked on
 a leading "layer" axis.  The reference runs the layer body under
 ``lax.scan``; the port runs a Python loop over the layer index of the
-same stacked ``(L, ...)`` tensors.  ``lm_decode`` updates the
-``(L, B, T, K, hd)`` KV cache in place.
+same stacked ``(L, ...)`` tensors.  ``lm_decode`` and ``encdec_decode``
+update their ``(L, B, T, K, hd)`` KV caches in place.
 
-All randomness (init, dropout) comes from named ThundeRiNG streams.  The
-MoE MLP and the encoder-decoder (whisper-family) functions are not
-ported yet: they raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+All randomness (init, dropout, router jitter) comes from named ThundeRiNG
+streams.
 """
 from __future__ import annotations
 
@@ -21,16 +20,9 @@ import torch.nn.functional as F
 
 from repro_torch.core import stream as tstream
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import sharding as shd
 from repro_torch.models.common import ArchConfig, ParamFactory, unflatten
-
-#: Where the families this module does not serve yet are queued.
-FAMILIES_TODO = ("ROADMAP.md queue A item 7 ports the moe, ssm, hybrid and "
-                 "encdec families")
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {FAMILIES_TODO}")
 
 
 def _kr(cfg: ArchConfig) -> Tuple[int, int]:
@@ -46,10 +38,6 @@ def _kr(cfg: ArchConfig) -> Tuple[int, int]:
 def _layer_params(pf: ParamFactory, cfg: ArchConfig, prefix: str,
                   n_layers: int, cross: bool = False,
                   moe: bool = False) -> Dict[str, Any]:
-    if cross:
-        raise not_ported("cross-attention (encdec) init")
-    if moe:
-        raise not_ported("MoE init")
     D = cfg.d_model
     K, R = _kr(cfg)
     hd = cfg.resolved_head_dim
@@ -75,15 +63,38 @@ def _layer_params(pf: ParamFactory, cfg: ArchConfig, prefix: str,
                                      Lx + ("kv_heads", "head"))
         p[f"{prefix}/bv"] = pf.zeros(f"{prefix}/bv", (n_layers, K, hd),
                                      Lx + ("kv_heads", "head"))
+    if cross:
+        p[f"{prefix}/xattn_norm"] = pf.zeros(f"{prefix}/xattn_norm",
+                                             (n_layers, D), Lx + ("embed",))
+        p[f"{prefix}/xwq"] = pf.normal(f"{prefix}/xwq", (n_layers, D, K, R, hd),
+                                       std, Lx + ("embed", "kv_heads", "q_rep", "head"))
+        p[f"{prefix}/xwk"] = pf.normal(f"{prefix}/xwk", (n_layers, D, K, hd),
+                                       std, Lx + ("embed", "kv_heads", "head"))
+        p[f"{prefix}/xwv"] = pf.normal(f"{prefix}/xwv", (n_layers, D, K, hd),
+                                       std, Lx + ("embed", "kv_heads", "head"))
+        p[f"{prefix}/xwo"] = pf.normal(f"{prefix}/xwo", (n_layers, K, R, hd, D),
+                                       std_out, Lx + ("kv_heads", "q_rep", "head", "embed"))
     p[f"{prefix}/mlp_norm"] = pf.zeros(f"{prefix}/mlp_norm", (n_layers, D),
                                        Lx + ("embed",))
-    if cfg.act in ("silu", "geglu"):
-        p[f"{prefix}/wg"] = pf.normal(f"{prefix}/wg", (n_layers, D, F_), std,
+    if moe:
+        E = cfg.n_experts
+        p[f"{prefix}/router"] = pf.normal(f"{prefix}/router", (n_layers, D, E),
+                                          std, Lx + ("embed", "experts"))
+        p[f"{prefix}/moe_wg"] = pf.normal(f"{prefix}/moe_wg", (n_layers, E, D, F_),
+                                          std, Lx + ("experts", "embed", "f"))
+        p[f"{prefix}/moe_wi"] = pf.normal(f"{prefix}/moe_wi", (n_layers, E, D, F_),
+                                          std, Lx + ("experts", "embed", "f"))
+        p[f"{prefix}/moe_wo"] = pf.normal(f"{prefix}/moe_wo", (n_layers, E, F_, D),
+                                          std_out, Lx + ("experts", "f", "embed"))
+    else:
+        if cfg.act in ("silu", "geglu"):
+            p[f"{prefix}/wg"] = pf.normal(f"{prefix}/wg", (n_layers, D, F_),
+                                          std, Lx + ("embed", "f"))
+        p[f"{prefix}/wi"] = pf.normal(f"{prefix}/wi", (n_layers, D, F_), std,
                                       Lx + ("embed", "f"))
-    p[f"{prefix}/wi"] = pf.normal(f"{prefix}/wi", (n_layers, D, F_), std,
-                                  Lx + ("embed", "f"))
-    p[f"{prefix}/wo_mlp"] = pf.normal(f"{prefix}/wo_mlp", (n_layers, F_, D),
-                                      std_out, Lx + ("f", "embed"))
+        p[f"{prefix}/wo_mlp"] = pf.normal(f"{prefix}/wo_mlp",
+                                          (n_layers, F_, D), std_out,
+                                          Lx + ("f", "embed"))
     return p
 
 
@@ -105,7 +116,16 @@ def init_lm(cfg: ArchConfig, seed: int, device=None):
 
 
 def init_encdec(cfg: ArchConfig, seed: int, device=None):
-    raise not_ported("init_encdec")
+    pf = ParamFactory(seed, device=device)
+    D, V = cfg.d_model, cfg.vocab
+    flat = {"embed": pf.normal("embed", (V, D), 0.02, ("vocab", "embed")),
+            "enc_final_norm_w": pf.ones("enc_final_norm_w", (D,), ("embed",)),
+            "enc_final_norm_b": pf.zeros("enc_final_norm_b", (D,), ("embed",)),
+            "final_norm_w": pf.ones("final_norm_w", (D,), ("embed",)),
+            "final_norm_b": pf.zeros("final_norm_b", (D,), ("embed",))}
+    flat.update(_layer_params(pf, cfg, "enc_layers", cfg.enc_layers))
+    flat.update(_layer_params(pf, cfg, "dec_layers", cfg.n_layers, cross=True))
+    return unflatten(flat), dict(pf.specs)
 
 
 # ---------------------------------------------------------------------------
@@ -130,23 +150,31 @@ def _self_attention(cfg, lp, h, positions, *, causal, kv_cache=None,
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
     if kv_cache is not None:
-        k_cache, v_cache = kv_cache
-        T = k_cache.shape[1]
-        if not 0 <= pos <= T - k.shape[1]:
-            # the reference's dynamic_update_slice would clamp the start
-            raise ValueError(f"decode position {pos} is outside the "
-                             f"cache of {T} positions")
-        k_cache[:, pos:pos + k.shape[1]] = L.cast(k, k_cache.dtype)
-        v_cache[:, pos:pos + v.shape[1]] = L.cast(v, v_cache.dtype)
+        k_cache, v_cache = write_kv(kv_cache, k, v, pos)
         o = L.decode_attention(q, k_cache, v_cache, pos)
         return L.attn_out(o, lp[f"{prefix}wo"]), (k_cache, v_cache)
     o = L.attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk)
     return L.attn_out(o, lp[f"{prefix}wo"]), (k, v)
 
 
+def write_kv(kv_cache, k, v, pos: int):
+    """Write (B, s, K, hd) k / v into the (B, T, K, hd) caches at ``pos``,
+    in place; returns the caches."""
+    k_cache, v_cache = kv_cache
+    T = k_cache.shape[1]
+    if not 0 <= pos <= T - k.shape[1]:
+        # the reference's dynamic_update_slice would clamp the start
+        raise ValueError(f"decode position {pos} is outside the "
+                         f"cache of {T} positions")
+    k_cache[:, pos:pos + k.shape[1]] = L.cast(k, k_cache.dtype)
+    v_cache[:, pos:pos + v.shape[1]] = L.cast(v, v_cache.dtype)
+    return k_cache, v_cache
+
+
 def _mlp_block(cfg, lp, h, rng, moe: bool):
     if moe:
-        raise not_ported("the MoE MLP (models/moe.py)")
+        return moe_mod.moe_mlp(cfg, h, lp["router"], lp["moe_wg"],
+                               lp["moe_wi"], lp["moe_wo"], rng)
     gated = cfg.act in ("silu", "geglu")
     out = L.mlp(h, lp["wi"], lp["wo_mlp"], cfg.act,
                 lp.get("wg") if gated else None)
@@ -154,14 +182,19 @@ def _mlp_block(cfg, lp, h, rng, moe: bool):
 
 
 def _decoder_layer(cfg: ArchConfig, h, lp, positions, rng, *,
-                   kv_cache=None, pos=None, causal=True):
-    """One decoder layer. Returns (h, new_kv, aux_loss)."""
-    if cfg.family == "encdec":
-        raise not_ported("the encdec decoder layer")
+                   kv_cache=None, pos=None, enc_out=None, causal=True):
+    """One decoder layer. Returns (h, new_kv, aux_loss).  ``enc_out``:
+    the layer's cross-attention (k, v) (encdec decoder layers)."""
     moe = cfg.family == "moe"
+    if cfg.family == "encdec":   # LayerNorm with weight 1 + w, no bias
+        nrm = lambda x, base: L.layer_norm(x, 1.0 + lp[base],
+                                           torch.zeros_like(lp[base]),
+                                           cfg.norm_eps)
+    else:
+        nrm = lambda x, base: _norm(cfg, x, lp[base])
     seq_gather = kv_cache is None and shd.prefer_seq_gather(
         cfg, h.shape[0], h.shape[1])
-    a_in = _norm(cfg, h, lp["attn_norm"])
+    a_in = nrm(h, "attn_norm")
     if seq_gather and not shd.context_parallel_attention(
             None, max(cfg.n_kv_heads, 1),
             cfg.n_heads // max(cfg.n_kv_heads, 1)):
@@ -170,7 +203,17 @@ def _decoder_layer(cfg: ArchConfig, h, lp, positions, rng, *,
                                    kv_cache=kv_cache, pos=pos)
     attn = L.dropout(attn, rng, cfg.dropout_rate)
     h = h + attn
-    m_in = _norm(cfg, h, lp["mlp_norm"])
+    if enc_out is not None:
+        x_in = nrm(h, "xattn_norm")
+        xq = torch.einsum("bsd,dkrh->bskrh", x_in, lp["xwq"].to(x_in.dtype))
+        # decode attends to every encoder position: pos = enc_ctx masks
+        # nothing
+        xo = L.attention(xq, enc_out[0], enc_out[1], causal=False,
+                         q_chunk=cfg.q_chunk) if pos is None else \
+            L.decode_attention(xq, enc_out[0], enc_out[1],
+                               enc_out[0].shape[1])
+        h = h + L.attn_out(xo, lp["xwo"])
+    m_in = nrm(h, "mlp_norm")
     if seq_gather:
         m_in = shd.gather_seq_hint(m_in)
     mlp_rng = tstream.derive(rng, 0x4D4C50) if rng is not None else None
@@ -272,16 +315,121 @@ def lm_decode(cfg: ArchConfig, params, cache, token, pos):
 
 
 # ---------------------------------------------------------------------------
-# encoder-decoder (whisper-family): not ported yet
+# encoder-decoder (whisper-family)
 # ---------------------------------------------------------------------------
 
-def encdec_forward(cfg: ArchConfig, params, frames, tokens, **kw):
-    raise not_ported("encdec_forward")
+def _sinusoids(n: int, d: int, device) -> torch.Tensor:
+    return torch.from_numpy(L.sinusoid_positions(n, d)).to(device)
+
+
+def encode(cfg: ArchConfig, params, frames):
+    """frames: (B, enc_ctx, D) precomputed conv-frontend output (stub)."""
+    B, T, D = frames.shape
+    h = (frames + _sinusoids(T, D, frames.device)[None]).to(L.COMPUTE_DTYPE)
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=h.device).expand(B, T)
+
+    def body(h, lp):
+        return _decoder_layer(cfg, h, lp, positions, None, causal=False)[0]
+
+    for li in range(cfg.enc_layers):
+        lp = _layer(params["enc_layers"], li)
+        h = L.remat(body, h, lp) if cfg.remat == "full" else body(h, lp)
+    return L.layer_norm(h, params["enc_final_norm_w"],
+                        params["enc_final_norm_b"], cfg.norm_eps)
+
+
+def _dec_positions(cfg, tokens):
+    B, S = tokens.shape
+    return torch.arange(S, dtype=torch.int32,
+                        device=tokens.device).expand(B, S)
+
+
+def _layer_cross_kv(lp, enc_out):
+    k = torch.einsum("btd,dkh->btkh", enc_out, lp["xwk"].to(enc_out.dtype))
+    v = torch.einsum("btd,dkh->btkh", enc_out, lp["xwv"].to(enc_out.dtype))
+    return k, v
+
+
+def _cross_kv(cfg, params, enc_out):
+    """Per-decoder-layer cross K/V: (L, B, T, K, hd) x2."""
+    kvs = [_layer_cross_kv(_layer(params["dec_layers"], li), enc_out)
+           for li in range(cfg.n_layers)]
+    return (torch.stack([kv[0] for kv in kvs]),
+            torch.stack([kv[1] for kv in kvs]))
+
+
+def _dec_embed(cfg, params, tokens):
+    h = L.embed(tokens, params["embed"])
+    return h + _sinusoids(tokens.shape[1], cfg.d_model,
+                          h.device)[None].to(h.dtype)
+
+
+def _dec_final(cfg, params, h):
+    return L.layer_norm(h, params["final_norm_w"], params["final_norm_b"],
+                        cfg.norm_eps)
+
+
+def encdec_forward(cfg: ArchConfig, params, frames, tokens, *,
+                   rng: Optional[tstream.ThunderStream] = None,
+                   return_hidden: bool = False):
+    """Training forward: (B, T, D) frames + (B, S) tokens -> logits."""
+    enc_out = encode(cfg, params, frames)
+    h = shd.activation_hint(_dec_embed(cfg, params, tokens))
+    positions = _dec_positions(cfg, tokens)
+
+    def body(h, lp, lrng, enc_out):
+        xkv = _layer_cross_kv(lp, enc_out)
+        return _decoder_layer(cfg, h, lp, positions, lrng, enc_out=xkv)[0]
+
+    for li in range(cfg.n_layers):
+        lrng = tstream.derive(rng, li) if rng is not None else None
+        lp = _layer(params["dec_layers"], li)
+        h = L.remat(body, h, lp, lrng, enc_out) if cfg.remat == "full" \
+            else body(h, lp, lrng, enc_out)
+    h = _dec_final(cfg, params, h)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if return_hidden:
+        return h, aux
+    return L.unembed(h, params["embed"]), aux
 
 
 def encdec_prefill(cfg: ArchConfig, params, frames, tokens):
-    raise not_ported("encdec_prefill")
+    """Returns (last logits, (self_k, self_v, cross_k, cross_v))."""
+    enc_out = encode(cfg, params, frames)
+    cross = _cross_kv(cfg, params, enc_out)
+    del enc_out
+    h = _dec_embed(cfg, params, tokens)
+    positions = _dec_positions(cfg, tokens)
+    ks, vs = [], []
+    for li in range(cfg.n_layers):
+        h, (k, v), _ = _decoder_layer(cfg, h, _layer(params["dec_layers"], li),
+                                      positions, None,
+                                      enc_out=(cross[0][li], cross[1][li]))
+        ks.append(k)
+        vs.append(v)
+    h = _dec_final(cfg, params, h)
+    logits = L.unembed(h[:, -1:], params["embed"])[:, 0]
+    return logits, (torch.stack(ks), torch.stack(vs)) + cross
 
 
 def encdec_decode(cfg: ArchConfig, params, cache, token, pos):
-    raise not_ported("encdec_decode")
+    """One decode step; the self-attention caches are updated in place."""
+    pos = int(pos)
+    self_k, self_v, cross_k, cross_v = cache
+    T = self_k.shape[2]
+    if not 0 <= pos < T:
+        raise ValueError(f"decode position {pos} is outside the cache of "
+                         f"{T} positions")
+    h = L.embed(token, params["embed"])
+    # the sinusoid at position pos
+    h = h + _sinusoids(T, cfg.d_model, h.device)[pos:pos + 1][None].to(h.dtype)
+    positions = torch.full((token.shape[0], 1), pos, dtype=torch.int32,
+                           device=h.device)
+    for li in range(cfg.n_layers):
+        h, _, _ = _decoder_layer(cfg, h, _layer(params["dec_layers"], li),
+                                 positions, None,
+                                 kv_cache=(self_k[li], self_v[li]), pos=pos,
+                                 enc_out=(cross_k[li], cross_v[li]))
+    h = _dec_final(cfg, params, h)
+    return L.unembed(h, params["embed"])[:, 0], cache

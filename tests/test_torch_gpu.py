@@ -683,3 +683,58 @@ def test_adamw_on_card_equals_cpu(cuda, clip_norm):
             assert int(d.max()) == 0
         else:                        # the norm's float32 sum order differs
             assert int(d.max()) <= 4
+
+
+FAMILY_ARCHS = ["granite_moe_3b", "olmoe_1b_7b", "mamba2_2p7b", "zamba2_7b",
+                "whisper_small"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_smoke_width_card_matches_cpu(cuda, arch):
+    """Each of the moe / ssm / hybrid / encdec families at ``smoke_config``
+    width: init on the card within 8 ULP of the CPU's; forward, prefill
+    and decode logits on equal weights within 0.02 of the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import pipeline_for, smoke_config
+    from repro_torch.models import registry
+    from repro_torch.models.common import flatten, unflatten
+    cfg = smoke_config(get_config(arch))
+    m_cpu, m_card = registry.build(cfg, "cpu"), registry.build(cfg, cuda)
+    p_cpu = flatten(m_cpu.init(0)[0])
+    p_card = flatten(m_card.init(0)[0])
+    for path, want in p_cpu.items():
+        got = p_card[path].cpu()
+        assert int((_ordered_f32(got) - _ordered_f32(want)).abs().max()) \
+            <= 8, path
+    B, P, G = 4, 12, 4
+    batch = pipeline_for(cfg, B, P + G, 0, device="cpu").batch_at(0)
+    batch.pop("labels")
+    same = unflatten({k: v.to(cuda) for k, v in p_cpu.items()})
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    want, _ = m_cpu.forward(unflatten(p_cpu), batch)
+    got, _ = m_card.forward(same, on_card)
+    assert float((got.cpu() - want).abs().max()) <= 0.02
+    prompt = lambda b: dict(b, tokens=b["tokens"][:, :P])
+    want_l, pc_cpu = m_cpu.prefill(unflatten(p_cpu), prompt(batch))
+    got_l, pc = m_card.prefill(same, prompt(on_card))
+    assert float((got_l.cpu() - want_l).abs().max()) <= 0.02
+    cache = serve._graft(cfg, m_card.init_cache(B, P + G), pc, P)
+    for i in range(G - 1):
+        lg, cache = m_card.decode(same, cache,
+                                  on_card["tokens"][:, P + i:P + i + 1],
+                                  P + i)
+        assert float((lg.cpu() - want[:, P + i]).abs().max()) <= 0.15 + \
+            0.05 * float(want[:, P + i].abs().max())
+
+
+@pytest.mark.parametrize("V", [50304, 49155, 50280, 32000, 51865])
+def test_gumbel_argmax_kernel_at_the_families_vocabularies(cuda, V):
+    """Kernel F at the vocabularies of olmoe, granite-moe, mamba2, zamba2
+    and whisper (odd ones: the last V tile is ragged) at batch 64."""
+    logits, h, x0 = _ga_case(V, 64, cuda)
+    for inv_temp, top_k in GA_OPTIONS:
+        th = (torch.topk(logits, top_k, dim=-1).values[:, -1] if top_k
+              else torch.full((64,), float("-inf"), device=cuda))
+        for ctr in (0, 2 ** 32 + 12345):
+            _ga_check(logits, h, x0, ctr, th, inv_temp)

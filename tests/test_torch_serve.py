@@ -124,8 +124,10 @@ def test_token_picker_equal_reference_on_equal_logits(temperature, path):
         assert t_pick.sampler.stats()["calls_per_step"] == 1.0
 
 
-@pytest.mark.parametrize("arch,temperature", [("glm4_9b", 0.8),
-                                              ("gemma_7b", 0.0)])
+@pytest.mark.parametrize("arch,temperature", [
+    ("glm4_9b", 0.8), ("gemma_7b", 0.0), ("olmoe_1b_7b", 0.8),
+    ("granite_moe_3b", 0.0), ("mamba2_2p7b", 0.8), ("zamba2_7b", 0.0),
+    ("whisper_small", 0.8)])
 def test_serve_teacher_forced_on_reference_tokens(arch, temperature,
                                                   monkeypatch):
     """The reference serves B=2 prompts for 6 tokens; the port serves the

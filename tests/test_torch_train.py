@@ -52,6 +52,22 @@ from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
 CPU = "cpu"
 LOSS_ATOL = 0.02
 GRAD_MAX_REL, GRAD_RMS_REL = 2.0 ** -5, 2.0 ** -6
+# a whole MoE model: the second layer's routers read bf16 activations that
+# differ by rounding, and 2 of its 512 tokens take another expert (their
+# top-k margins 1.0e-5 and 1.5e-5); at the smoke width (8 experts of
+# d_ff 64) that moves the expert leaves' gradients by up to 0.078 of
+# their largest (RMS 0.055).  Both at 2^-3; moe_mlp's own gradients on
+# equal inputs are held to the tolerance above
+# (tests/test_torch_families.py)
+MOE_GRAD_REL = (2.0 ** -3, 2.0 ** -3)
+# mamba2 blocks (ssm, hybrid): bf16 products reduced over the batch and
+# sequence for the per-head leaves (d_skip, dt_bias, a_log) differ most:
+# d_skip's gradient is 0.085 of its largest from the reference's (RMS
+# 0.054), but against a float32-activation run of the port the port's is
+# 0.028 off and the reference's 0.098.  Max 2^-3, RMS 2^-4
+MAMBA_GRAD_REL = (2.0 ** -3, 2.0 ** -4)
+GRAD_REL = {"moe": MOE_GRAD_REL, "ssm": MAMBA_GRAD_REL,
+            "hybrid": MAMBA_GRAD_REL}
 STEP_LR, EPS = 1e-2, 1e-8        # the step's peak lr; AdamW's eps
 TRAIN_KW = dict(steps=4, global_batch=2, seq_len=32, seed=1, save_every=2,
                 log_every=1)
@@ -74,32 +90,53 @@ def _bits_equal(a, b):
                for k in fa)
 
 
-@pytest.fixture(scope="module")
-def ref_setup():
-    """Per arch: the reference's model, jitted init params, a batch, and
-    its ((loss, metrics), grads) at step 0's rng."""
-    out = {}
-    jrng = j_stream.derive(j_stream.new_stream(0, 0xD07), jnp.uint32(0))
-    for arch in ("glm4_9b", "gemma_7b"):
+# the batch's sequence length per arch.  The reference's mamba2 gradient
+# is NaN at 128 (ROADMAP C9: exp(seg) above the SSD chunk's diagonal
+# overflows, and its masked gradient is 0 * inf), so the families with
+# mamba2 blocks are compared at 32, where it is finite;
+# tests/test_torch_families.py holds the port's finite gradient where the
+# reference's overflows
+SEQ = {"mamba2_2p7b": 32, "zamba2_7b": 32}
+
+
+class _RefSetup(dict):
+    """arch -> the reference's model, jitted init params, a batch, and
+    its ((loss, metrics), grads) at step 0's rng; built on first use."""
+
+    def __missing__(self, arch):
+        jrng = j_stream.derive(j_stream.new_stream(0, 0xD07), jnp.uint32(0))
         jc, tc = _cfgs(arch)
         jm = j_registry.build(jc)
         jp = jax.jit(lambda m=jm: m.init(3)[0])()
-        jb = j_train.pipeline_for(jc, 4, 128, 5).batch_at(0)
+        jb = j_train.pipeline_for(jc, 4, SEQ.get(arch, 128), 5).batch_at(0)
         vg = jax.jit(jax.value_and_grad(
             lambda p, m=jm, b=jb: m.loss(p, b, jrng), has_aux=True))(jp)
-        out[arch] = (jc, tc, jm, jp, jb, vg)
-    return out
+        self[arch] = (jc, tc, jm, jp, jb, vg)
+        return self[arch]
+
+
+@pytest.fixture(scope="module")
+def ref_setup():
+    return _RefSetup()
 
 
 def _torch_batch(jb):
-    return {k: torch.from_numpy(np.array(v)) for k, v in jb.items()}
+    out = {}
+    for k, v in jb.items():
+        if v.dtype == jnp.bfloat16:    # whisper's frames
+            out[k] = torch.from_numpy(np.array(v, np.float32)).bfloat16()
+        else:
+            out[k] = torch.from_numpy(np.array(v))
+    return out
 
 
 # ---------------------------------------------------------------------------
 # make_train_step against the reference on carried-over parameters
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["glm4_9b", "gemma_7b"])
+@pytest.mark.parametrize("arch", ["glm4_9b", "gemma_7b", "granite_moe_3b",
+                                  "olmoe_1b_7b", "mamba2_2p7b", "zamba2_7b",
+                                  "whisper_small"])
 def test_loss_and_gradients_match_reference(arch, ref_setup):
     jc, tc, jm, jp, jb, ((jl, jmet), jg) = ref_setup[arch]
     tm = t_registry.build(tc, CPU)
@@ -110,12 +147,13 @@ def test_loss_and_gradients_match_reference(arch, ref_setup):
     assert set(tmet) == set(jmet)
     want, got = _np_flat(jax.tree.map(np.asarray, jg)), _np_flat(tg)
     assert set(want) == set(got)
+    max_rel, rms_rel = GRAD_REL.get(jc.family, (GRAD_MAX_REL, GRAD_RMS_REL))
     for k, w in want.items():
         g = got[k]
         assert g.dtype == np.float32 and g.shape == w.shape, k
         d = g.astype(np.float64) - w
-        assert np.abs(d).max() <= GRAD_MAX_REL * np.abs(w).max(), k
-        assert np.sqrt(np.mean(d ** 2)) <= GRAD_RMS_REL * np.sqrt(
+        assert np.abs(d).max() <= max_rel * np.abs(w).max(), k
+        assert np.sqrt(np.mean(d ** 2)) <= rms_rel * np.sqrt(
             np.mean(np.square(w, dtype=np.float64))), k
     # the params are read, never written
     assert _bits_equal(tp, convert.params_from_reference(tc, jp, device=CPU))
