@@ -40,8 +40,17 @@ off - one digest each).  Last the other model families: olmoe-1b-7b,
 granite-moe-3b-a800m, mamba2-2.7b, zamba2-7b and whisper-small served
 unmodified through ``launch.serve`` (kernel A draws every parameter,
 prompt and audio frame, kernel F samples every token), each against the
-CPU at smoke width, decode against forward at 2 layers of full width, a
-profile of olmoe and mamba2 decode steps and the serve CLI on mamba2.
+CPU at smoke width (an MoE token routed otherwise on the card must be a
+near-tie), decode against forward at 2 layers of full width, a profile of
+olmoe and mamba2 decode steps and the serve CLI on mamba2.  Last the dry
+run: ``python -m repro_torch.launch.dryrun`` over every cell of both
+production meshes (meta tensors), and its RNG fan-out and service burst
+on the card, in subprocesses; ``rng_fanout_cell`` over 256, 512 and 4
+shards of the card (each block equal to one ``generate``);
+``service_cell`` on the card against the CPU; the dry run's argument
+bytes of every config served or trained above against the peak memory
+the card measured for it, and the depth at which each of the four
+configs never served fits the card.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -1383,6 +1392,19 @@ def _ga_bound(V: int, B: int):
             "operations" if t_ops > t_bytes else "bytes", t_bytes, t_ops)
 
 
+def _philox_gumbel_ms(logits, gen) -> float:
+    """ms per call of torch's Philox Gumbel-max on ``logits`` (rand,
+    -log(-log u), scaled add, argmax), CUDA events."""
+    import torch
+    u = torch.empty(logits.shape, device=logits.device)
+
+    def philox():
+        torch.rand(logits.shape, generator=gen, device=logits.device, out=u)
+        g = -torch.log(-torch.log(u))
+        return torch.argmax(logits * 1.0 + g, -1)
+    return time_cuda(philox, reps=20)
+
+
 def phase_inference_timing(device) -> list:
     """Kernel F at (V, B) = (256000, 64) and (256000, 256): ms, elements
     per s, bound, plain ms, and two torch samplers on the same logits."""
@@ -1403,13 +1425,7 @@ def phase_inference_timing(device) -> list:
                        reps=50)
         plain_ms = time_cuda(lambda: ga.fused_argmax_plain(
             logits, h, x0, 977, th, inv_temp=1.0), reps=1, warmup=1)
-        u = torch.empty((B, V), device=device)
-
-        def philox():
-            torch.rand((B, V), generator=gen, device=device, out=u)
-            g = -torch.log(-torch.log(u))
-            return torch.argmax(logits * 1.0 + g, -1)
-        lib_ms = time_cuda(philox, reps=20)
+        lib_ms = _philox_gumbel_ms(logits, gen)
         multi_ms = time_cuda(lambda: torch.multinomial(
             torch.softmax(logits * 1.0, -1), 1, generator=gen), reps=20)
         b_ms, b_by, t_bytes, t_ops = _ga_bound(V, B)
@@ -1425,7 +1441,7 @@ def phase_inference_timing(device) -> list:
         rows.append(dict(name="gumbel_argmax", B=B, ms=ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
                          multinomial_ms=multi_ms))
-        del logits, u
+        del logits
     _decode_step_breakdown(device)
     return rows
 
@@ -2074,18 +2090,51 @@ def _serve_deterministic(device, hot, reqs) -> dict:
     return out
 
 
+def _responses_alike(label: str, reqs, got_of, want_of):
+    """Each response of ``got_of`` against ``want_of``'s: bit for bit on
+    the integer and threshold classes, within 8 ULP
+    (``sampler.ulp_error``) on normal, exponential and gamma.  Returns
+    (the bit-identical rids, the worst ULP per log class)."""
+    import torch
+    from repro_torch.core import sampler
+    exact, worst = [], {}
+    for r in reqs:
+        got, want = (_response_tensor(got_of[r.rid]),
+                     _response_tensor(want_of[r.rid]))
+        require(got.dtype == want.dtype and got.shape == want.shape,
+                f"{label}: {r.rid} is {got.dtype} {tuple(got.shape)}, plain "
+                f"{want.dtype} {tuple(want.shape)}")
+        cls = r.sampler.split("(")[0]
+        if cls in SERVICE_LOG_STAGES:
+            err = (float(sampler.ulp_error(got, want).max())
+                   if got.numel() else 0.0)
+            worst[cls] = max(worst.get(cls, 0.0), err)
+            require(err <= SERVICE_ULP_SLACK, f"{label}: {r.rid} "
+                    f"({r.sampler}) is {err} ULP off the plain version")
+        else:
+            require(torch.equal(got.reshape(-1).view(torch.uint8),
+                                want.reshape(-1).view(torch.uint8)),
+                    f"{label}: {r.rid} ({r.sampler}, {r.out_dtype}) "
+                    f"differs from the plain version")
+            exact.append(r.rid)
+    return exact, worst
+
+
+def _ulp_note(worst: dict) -> str:
+    return (", ".join(f"{k} {v:.2f}" for k, v in sorted(worst.items()))
+            + f" ULP (limit {SERVICE_ULP_SLACK:g})")
+
+
 def phase_service_plain(device) -> None:
     """Kernel A at the service path's shapes against the plain version:
     the ``make service`` burst, with and without pools, served on the card
     and by a server on the CPU, where every block comes from the plain
     torch version (held to the reference by the CPU tests), compared
-    response by response - bit for bit on the integer and threshold
-    classes, within 8 ULP (``sampler.ulp_error``) on normal, exponential
-    and gamma.  This covers the pool windows, the class calls with their
-    leaf offsets at their (rows, S) shapes and the S = 1 calls.  Runs
-    before the path's counts are reset."""
+    response by response (``_responses_alike``).  This covers the pool
+    windows, the class calls with their leaf offsets at their (rows, S)
+    shapes and the S = 1 calls.  Runs before the path's counts are
+    reset."""
     import torch
-    from repro_torch.core import sampler
     from repro_torch.service.burst import make_requests
     reqs = make_requests(burst=SERVICE_BURST, tenants=SERVICE_TENANTS,
                          seed=0)
@@ -2093,35 +2142,12 @@ def phase_service_plain(device) -> None:
         t0 = time.perf_counter()
         card = _serve_deterministic(device, hot, reqs)
         plain = _serve_deterministic(torch.device("cpu"), hot, reqs)
-        exact, worst = 0, {}
-        for r in reqs:
-            got, want = _response_tensor(card[r.rid]), _response_tensor(
-                plain[r.rid])
-            require(got.dtype == want.dtype and got.shape == want.shape,
-                    f"service plain check[{label}]: {r.rid} is {got.dtype} "
-                    f"{tuple(got.shape)}, plain {want.dtype} "
-                    f"{tuple(want.shape)}")
-            cls = r.sampler.split("(")[0]
-            if cls in SERVICE_LOG_STAGES:
-                err = (float(sampler.ulp_error(got, want).max())
-                       if got.numel() else 0.0)
-                worst[cls] = max(worst.get(cls, 0.0), err)
-                require(err <= SERVICE_ULP_SLACK,
-                        f"service plain check[{label}]: {r.rid} "
-                        f"({r.sampler}) is {err} ULP off the plain version")
-            else:
-                require(torch.equal(got.reshape(-1).view(torch.uint8),
-                                    want.reshape(-1).view(torch.uint8)),
-                        f"service plain check[{label}]: {r.rid} "
-                        f"({r.sampler}, {r.out_dtype}) differs from the "
-                        f"plain version")
-                exact += 1
+        exact, worst = _responses_alike(f"service plain check[{label}]",
+                                        reqs, card, plain)
         log(f"service plain check[{label}]: {len(reqs)} responses on the "
-            f"card against a CPU server's plain versions: {exact} integer / "
-            f"threshold responses bit-identical, log stages within "
-            + ", ".join(f"{k} {v:.2f}" for k, v in sorted(worst.items()))
-            + f" ULP (limit {SERVICE_ULP_SLACK:g}); "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"card against a CPU server's plain versions: {len(exact)} "
+            f"integer / threshold responses bit-identical, log stages "
+            f"within {_ulp_note(worst)}; {time.perf_counter() - t0:.1f} s")
 
 
 def phase_service_path(device) -> dict:
@@ -2170,6 +2196,11 @@ SERVE_DECODE_RMS_RATIO = 1.1
 # card against CPU at the smoke width: the CPU tests' port-against-
 # reference logit tolerance (tests/test_torch_models.py LOGIT_ATOL)
 SERVE_LOGIT_ATOL = 0.02
+# router probabilities of the MoE configs at smoke width on equal
+# weights: the largest |card - CPU| over tokens whose rows were routed
+# alike so far (``_flips_are_near_ties``).  An H100 gave 3.7e-4 for both
+# MoE configs; the limit keeps a 5x margin over that
+MOE_PROB_ATOL = 2e-3
 SERVE_INIT_ULP = 8
 SERVE_PROFILE_STEPS = 8
 # kernel A's draws at the full-width path's shapes against the plain
@@ -2268,8 +2299,9 @@ def phase_serve_draws(device) -> None:
 class _MoeRoutes:
     """While active, records each ``moe.route`` call: ``calls`` holds,
     per call, (the chosen experts (tokens, k) sorted, the (tokens, k) mask
-    of choices dropped past the capacity, the group size), tokens in the
-    call's flat order."""
+    of choices dropped past the capacity, the group size, the router
+    probabilities (tokens, E) in float32), tokens in the call's flat
+    order."""
 
     def __enter__(self):
         from repro_torch.models import moe
@@ -2280,7 +2312,9 @@ class _MoeRoutes:
             out = real(probs, k, capacity)
             self.calls.append((out[1].reshape(-1, k).sort(-1).values.cpu(),
                                (out[2] == probs.shape[-1] * capacity)
-                               .reshape(-1, k).cpu(), probs.shape[1]))
+                               .reshape(-1, k).cpu(), probs.shape[1],
+                               probs.reshape(-1, probs.shape[-1]).float()
+                               .cpu()))
             return out
         moe.route = recorded
         return self
@@ -2302,7 +2336,7 @@ def _rows_routed_alike(a, b, rows: int):
     import torch
     ok = torch.ones(rows, dtype=torch.bool)
     flipped = 0
-    for (ea, _, gs), (eb, _, _) in zip(a, b):
+    for (ea, _, gs, _), (eb, _, _, _) in zip(a, b):
         diff = (ea != eb).any(-1)
         group = diff.reshape(-1, gs).any(-1).repeat_interleave(gs)
         ok[(torch.arange(diff.numel()) // (diff.numel() // rows))[group]] = \
@@ -2311,15 +2345,56 @@ def _rows_routed_alike(a, b, rows: int):
     return ok, flipped
 
 
+def _flips_are_near_ties(cpu, card, rows: int) -> dict:
+    """Holds every token that the card routed otherwise than the CPU (the
+    recordings of ``_MoeRoutes``) to a near-tie, at the first call where
+    its group diverged: the gap between its k-th and (k+1)-th router
+    probability on the CPU (the stable descending order of ``moe.top_k``)
+    must be at most 2 eps, eps the call's largest |p_card - p_cpu| over
+    the tokens whose rows were routed alike in every earlier call: two
+    devices within eps of each other cannot swap a pair further apart.
+    eps must stay within ``MOE_PROB_ATOL``.  Flips in rows that diverged
+    earlier follow from that divergence and are only counted.  Returns
+    {"flips", "held", "gap" (the largest held), "eps" (the largest)}."""
+    import torch
+    clean = torch.ones(rows, dtype=torch.bool)
+    out = {"flips": 0, "held": 0, "gap": 0.0, "eps": 0.0}
+    for i, ((ea, _, gs, pa), (eb, _, _, pb)) in enumerate(zip(cpu, card)):
+        n, k = ea.shape
+        row = torch.arange(n) // (n // rows)
+        first = clean[row]
+        eps = (float((pa - pb)[first].abs().max()) if bool(first.any())
+               else 0.0)
+        diff = (ea != eb).any(-1)
+        held = diff & first
+        if bool(held.any()):
+            top = torch.sort(pa[held], dim=-1, descending=True,
+                             stable=True).values
+            gap = float((top[:, k - 1] - top[:, k]).max())
+            require(gap <= 2 * eps, f"MoE call {i}: a token routed "
+                    f"otherwise on the card has a top-{k} gap of {gap:.3g} "
+                    f"on the CPU, more than 2 eps = {2 * eps:.3g}")
+            out["gap"] = max(out["gap"], gap)
+        out["flips"] += int(diff.sum())
+        out["held"] += int(held.sum())
+        out["eps"] = max(out["eps"], eps)
+        group = diff.reshape(-1, gs).any(-1).repeat_interleave(gs)
+        clean[row[group]] = False
+    require(out["eps"] <= MOE_PROB_ATOL, f"MoE router probabilities "
+            f"{out['eps']:.3g} from the CPU's (limit {MOE_PROB_ATOL})")
+    return out
+
+
 def _card_against_cpu(arch: str, device, label: str) -> None:
     """``arch`` at ``launch.train.smoke_config`` width on the card against
     the same code on the CPU (which the CPU tests hold against the
     reference): init within 8 ULP per parameter; prefill and decode
     logits on equal weights within ``SERVE_LOGIT_ATOL``; greedy tokens
     equal wherever the CPU's top-2 margin exceeds twice that.  An MoE row
-    whose router chose another expert set on the card (a near-tie: the
-    two devices sum the router's products in other orders) is counted
-    and left out; at least half the rows must remain."""
+    whose router chose another expert set on the card is counted and left
+    out; at least half the rows must remain, and each flip must be a
+    near-tie (``_flips_are_near_ties``: the two devices sum the router's
+    products in other orders)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.train import pipeline_for, smoke_config
@@ -2354,6 +2429,7 @@ def _card_against_cpu(arch: str, device, label: str) -> None:
             m_card, same, {k: v.to(device) for k, v in prompts.items()}, G,
             tokens=toks)
     rows, flipped = _rows_routed_alike(on_cpu.calls, on_card.calls, B)
+    ties = _flips_are_near_ties(on_cpu.calls, on_card.calls, B)
     got, want = got[rows], want[rows]
     err = float((got - want).abs().max())
     top2 = torch.topk(want, 2, dim=-1).values
@@ -2367,8 +2443,11 @@ def _card_against_cpu(arch: str, device, label: str) -> None:
         f"equal at {int((agree & sure).sum())} of {int(sure.sum())} "
         f"positions with a top-2 margin > {2 * SERVE_LOGIT_ATOL} "
         f"({int(agree.sum())} of {agree.numel()} overall); MoE tokens "
-        f"routed otherwise on the card {flipped}, rows held {int(rows.sum())}"
-        f" of {B}; {time.perf_counter() - t0:.1f} s")
+        f"routed otherwise on the card {flipped}, {ties['held']} of them at "
+        f"their group's first divergence, each a near-tie (largest top-k "
+        f"gap {ties['gap']:.3g} <= 2 eps, eps = max |p_card - p_cpu| "
+        f"{ties['eps']:.3g}, limit {MOE_PROB_ATOL}), rows held "
+        f"{int(rows.sum())} of {B}; {time.perf_counter() - t0:.1f} s")
     require(2 * int(rows.sum()) >= B, f"{label}: {B - int(rows.sum())} of "
             f"{B} rows routed otherwise on the card")
     require(err <= SERVE_LOGIT_ATOL, f"{label}: logits {err} from the "
@@ -2596,7 +2675,7 @@ def phase_serve_model(device) -> None:
     _serve_profile(model, params, device)
 
 
-def phase_serve_path(device) -> dict:
+def phase_serve_path(device, measured: dict) -> dict:
     """Kernel A at the path's draw shapes and the smoke width on the card
     against the plain versions; then the model serving path at gemma-7b's
     full width through the user entry point ``launch.serve.serve``:
@@ -2605,7 +2684,8 @@ def phase_serve_path(device) -> dict:
     argmax) - the same tokens - and greedy (no sampler, no leases), with
     kernel A and F's counts set to 0 just before and read just after; then
     ``python -m repro_torch.launch.serve`` in a subprocess, decode against
-    forward at full width and the profile of decode steps."""
+    forward at full width and the profile of decode steps.  Each run's
+    peak memory goes into ``measured[(arch, "serve")]``."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -2641,6 +2721,7 @@ def phase_serve_path(device) -> dict:
         toks, stats = srv.serve(cfg, temperature=temp, sampler_path=path,
                                 **kw)
         peak = torch.cuda.max_memory_allocated(device)
+        measured.setdefault((SERVE_ARCH, "serve"), []).append(peak)
         runs[label] = toks
         _serve_report(label, toks, stats, peak)
         require(toks.shape == (SERVE_BATCH, SERVE_GEN)
@@ -2945,13 +3026,13 @@ def _train_split(model, params, opt, batch, step, device):
     return params, opt
 
 
-def phase_train_full(device) -> None:
+def phase_train_full(device, measured: dict) -> None:
     """(b) gemma-7b at full width, ``TRAIN_LAYERS`` layers: step 0's loss
     against ``model.forward`` + the unchunked ``softmax_xent``; then
     ``make_train_step`` with ``adamw_init`` for 4 steps, twice from the
     same seed: equal sha256 digests of the parameters.  Reports init s,
-    step s, tokens/s, peak memory, the fwd+bwd / update split and one
-    step's profile."""
+    step s, tokens/s, peak memory (into ``measured[(arch, "train")]``),
+    the fwd+bwd / update split and one step's profile."""
     import numpy as np
     import torch
     from repro_torch.launch import steps
@@ -3020,6 +3101,7 @@ def phase_train_full(device) -> None:
                            pipe.batch_at(TRAIN_STEPS + 1), TRAIN_STEPS + 1,
                            device)
         del params, opt
+    measured[(TRAIN_ARCH, "train")] = list(peaks)
     p50 = float(np.percentile(step_s, 50))
     total = torch.cuda.get_device_properties(device).total_memory
     log(f"train full width: init {min(init_s):.3f}-{max(init_s):.3f} s; "
@@ -3152,7 +3234,7 @@ def phase_train_loop(device) -> None:
             "gave different gradients")
 
 
-def phase_train_path(device) -> dict:
+def phase_train_path(device, measured: dict) -> dict:
     """The training substrate: AdamW and kernel A at the path's shapes
     against the plain versions on the CPU / card first, then the smoke
     width on the card against the CPU and the CLI, then - kernel A's
@@ -3164,7 +3246,7 @@ def phase_train_path(device) -> dict:
     phase_train_draws(device)
     phase_train_smoke(device)
     tb.reset_counts()
-    phase_train_full(device)
+    phase_train_full(device, measured)
     phase_train_loop(device)
     launches = {"thundering_ctr": tb.thundering_ctr.launches}
     plain_runs = (tb.thundering_ctr_plain.cuda_runs
@@ -3234,11 +3316,14 @@ def phase_families_sampler(device) -> None:
     """Kernel F against its plain version at each config's vocabulary and
     batch 64 (every (inv_temp, top_k) option, counters below and past
     2**32; the odd vocabularies end in a ragged V tile), then its time
-    there beside its bound."""
+    there beside its bound and torch's Philox Gumbel-max on the same
+    logits."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.inference.kernels import gumbel_argmax as ga
     B = SERVE_BATCH
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
     for arch in FAMILY_ARCHS:
         V = get_config(arch).vocab
         logits, h, x0 = _ga_case(V, B, device)
@@ -3255,10 +3340,12 @@ def phase_families_sampler(device) -> None:
                                                inv_temp=1.0, out=out),
                        reps=50)
         b_ms, b_by, _, _ = _ga_bound(V, B)
+        lib_ms = _philox_gumbel_ms(logits, gen)
         log(f"kernel F at {arch}'s (V, B) = ({V}, {B}): equal to the plain "
             f"version ({len(INF_OPTIONS)} options x 2 counters); {ms:.4f} "
             f"ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / ms * 100:.1f}% of "
-            f"the bound's speed) ({card_line()})")
+            f"the bound's speed); torch Philox gumbel-max {lib_ms:.4f} ms "
+            f"({card_line()})")
         del logits
 
 
@@ -3297,7 +3384,7 @@ def _family_decode_vs_forward(cfg, device) -> None:
             dec.append(lg)
         steps = drops.take()
     dec = torch.stack(dec, 1)
-    pairs = sum(int(m.sum()) for _, m, _ in fwd + steps)
+    pairs = sum(int(c[1].sum()) for c in fwd + steps)
     excess = _excess(dec, full)
     finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
     log(f"  decode vs forward ({cfg.name}, {depth} layers at full width"
@@ -3316,12 +3403,13 @@ def _family_decode_vs_forward(cfg, device) -> None:
     del model, params, cache
 
 
-def phase_families_serve(device) -> dict:
+def phase_families_serve(device, measured: dict) -> dict:
     """Each of ``FAMILY_ARCHS`` unmodified through ``launch.serve.serve``
     at batch 64, prompt 128, 16 tokens, temperature 0.8 on the fused
     path, twice (equal tokens; olmoe also two-pass and greedy), with
     kernel A and F's counts set to 0 just before and read just after;
     then decode against forward at 2 layers of each published width.
+    Each run's peak memory goes into ``measured[(arch, "serve")]``.
     Returns the counts and the in-process tokens of each arch."""
     import numpy as np
     import torch
@@ -3359,10 +3447,11 @@ def phase_families_serve(device) -> dict:
                 toks, stats = srv.serve(cfg, temperature=temp,
                                         sampler_path=path, **kw)
             peak = torch.cuda.max_memory_allocated(device)
+            measured.setdefault((arch, "serve"), []).append(peak)
             toks_of[label] = toks
             _serve_report(f"{arch} {label}", toks, stats, peak)
             if drops.calls and label == "fused":
-                masks = [m for _, m, _ in drops.calls]
+                masks = [c[1] for c in drops.calls]
                 pre, dec = masks[:cfg.n_layers], masks[cfg.n_layers:]
                 log(f"  {arch}: dropped (token, choice) pairs past the "
                     f"capacity: prefill {sum(int(m.sum()) for m in pre)} of "
@@ -3403,7 +3492,7 @@ def phase_families_serve(device) -> dict:
     return launches, fused
 
 
-def phase_families_path(device) -> dict:
+def phase_families_path(device, measured: dict) -> dict:
     """The moe, ssm, hybrid and encdec families: (a) kernel A at the
     path's draw shapes and kernel F at each config's vocabulary against
     the plain versions; (b) each config at smoke width on the card
@@ -3417,7 +3506,7 @@ def phase_families_path(device) -> dict:
     phase_families_sampler(device)
     for arch in FAMILY_ARCHS:
         _card_against_cpu(arch, device, "families plain check")
-    launches, fused = phase_families_serve(device)
+    launches, fused = phase_families_serve(device, measured)
     for arch in FAMILY_PROFILE_ARCHS:
         _free_card()
         model = registry.build(get_config(arch), device)
@@ -3426,6 +3515,280 @@ def phase_families_path(device) -> dict:
         del model, params
     phase_serve_cli(device, srv.tokens_digest(
         fused[FAMILY_CLI_ARCH][:, :SERVE_CLI_GEN]), FAMILY_CLI_ARCH)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the dryrun path: the dry run's CLI, the RNG fan-out and the service cell
+# on the card, and the dry run's argument bytes against the card's peaks
+# ---------------------------------------------------------------------------
+
+DRYRUN_DIR = ROOT / "build" / "chip_smoke" / "dryrun"
+DRYRUN_CLI = (("cells", ("--all", "--both-meshes")),
+              ("rng-fanout", ("--rng-fanout", "--both-meshes")),
+              ("service", ("--service",)))
+# the configs the card has not served: their argument bytes at the
+# serving width of chip_smoke (batch 64, prompt 128 + 32 tokens)
+DRYRUN_UNSERVED = ("glm4_9b", "qwen15_32b", "granite_34b", "qwen2_vl_72b")
+DRYRUN_CTX = SERVE_PROMPT + SERVE_GEN
+FAMILY_CTX = SERVE_PROMPT + FAMILY_GEN
+
+
+def phase_dryrun_cli() -> None:
+    """``python -m repro_torch.launch.dryrun`` with ``--all
+    --both-meshes`` (every cell on meta), ``--rng-fanout --both-meshes``
+    and ``--service`` (on the card), in three subprocesses at once: each
+    exits 0, the first prints one OK or SKIP line per cell and mesh (OK
+    for every runnable one), the others OK lines."""
+    import os
+    from repro_torch.configs import ARCH_IDS, SHAPES, runnable_cells
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out",
+         str(DRYRUN_DIR / name)], env=env, cwd=ROOT, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for name, args in DRYRUN_CLI}
+    try:
+        outs = {name: p.communicate(timeout=300) for name, p in
+                procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for name, p in procs.items():
+        require(p.returncode == 0, f"dryrun CLI {name} exited "
+                f"{p.returncode}: {outs[name][1][-2000:]}")
+    lines = {name: out.strip().splitlines() for name, (out, _) in
+             outs.items()}
+    cells = lines["cells"]
+    n_run = 2 * len(list(runnable_cells()))
+    n_ok = sum(ln.startswith("[OK] ") for ln in cells)
+    n_skip = sum(ln.startswith("[SKIP] ") for ln in cells)
+    log(f"dryrun CLI --all --both-meshes: {n_ok} OK + {n_skip} SKIP lines "
+        f"for {len(ARCH_IDS) * len(SHAPES) * 2} cells ({n_run} runnable); "
+        + "; ".join(ln for ln in cells if "gemma_7b" in ln and "__pod" in ln))
+    require(n_ok == n_run and n_ok + n_skip == len(cells)
+            == len(ARCH_IDS) * len(SHAPES) * 2,
+            f"dryrun CLI: {n_ok} OK, {n_skip} SKIP of {len(cells)} lines")
+    for name in ("rng-fanout", "service"):
+        require(lines[name] and all(ln.startswith("[OK] ")
+                                    for ln in lines[name]),
+                f"dryrun CLI {name}: {lines[name]}")
+        for ln in lines[name]:
+            log(f"dryrun CLI {name}: {ln}")
+    require(len(lines["rng-fanout"]) == 2, "dryrun CLI --rng-fanout "
+            "--both-meshes did not report both meshes")
+    log(f"dryrun CLI: three subprocesses {time.perf_counter() - t0:.1f} s")
+
+
+def phase_dryrun_fanout(device) -> None:
+    """``rng_fanout_cell`` on both production shapes, every one of the
+    256 / 512 shards on the card, and ``generate_sharded`` over 4 shards
+    of the card at (4096, 2**14): each gathered block equal to one
+    ``generate`` bit for bit."""
+    from repro_torch.core import engine
+    from repro_torch.launch import dryrun
+    for mp in (False, True):
+        rep = dryrun.rng_fanout_cell(multi_pod=mp, device=device)
+        for s in ("bits", "uniform"):
+            r = rep[s]
+            log(f"rng fan-out {rep['mesh']} {s} {r['out_dtype']} "
+                f"(S {rep['num_streams']}, T {rep['num_steps']}): "
+                f"{r['shards']} shards of the card, {r['bytes_per_shard']} B "
+                f"a shard, {r['wall_ms']:.2f} ms wall (host clock, ending "
+                f"in a synchronize), collective bytes "
+                f"{r['collective_bytes']['total']}; equal to one generate "
+                f"{r['equal_to_generate']} ({card_line()})")
+            require(r["equal_to_generate"], f"rng fan-out {rep['mesh']} "
+                    f"{s}: the gathered block differs from one generate")
+            require(r["shards"] == rep["chips"], f"rng fan-out "
+                    f"{rep['mesh']}: {r['shards']} shards")
+    plan = engine.make_plan(seed=SEED, num_streams=S_FULL,
+                            num_steps=T_FULL, device=device)
+    mesh = engine.Mesh.of([device] * 4, (4,), ("streams",))
+    want = engine.generate(plan)
+    engine.generate_sharded(plan, mesh=mesh)
+    ms = host_ms(lambda: engine.generate_sharded(plan, mesh=mesh), reps=5)
+    got = engine.generate_sharded(plan, mesh=mesh)
+    log(f"rng fan-out over 4 shards of the card at ({T_FULL}, {S_FULL}): "
+        f"{ms:.3f} ms a call (host clock); equal to one generate "
+        f"{dryrun._same_bits(got, want)} ({card_line()})")
+    require(dryrun._same_bits(got, want), "the 4-shard fan-out differs "
+                                          "from one generate")
+
+
+class _BurstResponses:
+    """While active, records the responses of every
+    ``service.burst.run_burst`` call into ``out`` (rid -> response)."""
+
+    def __enter__(self):
+        from repro_torch.service import burst
+        self._real = real = burst.run_burst
+        self.out = {}
+
+        def recorded(*args, **kw):
+            got = real(*args, **kw)
+            self.out.update(got)
+            return got
+        burst.run_burst = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.service import burst
+        burst.run_burst = self._real
+
+
+def phase_dryrun_service(device) -> None:
+    """``service_cell`` on the card and on the CPU (which the CPU tests
+    hold against the reference's): replay bit-identical, the ledger
+    windows disjoint and equal, and each response alike
+    (``_responses_alike``: bit for bit on the integer and threshold
+    classes, which share one digest, within 8 ULP on the log stages)."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.service.audit import response_digest
+    from repro_torch.service.burst import make_requests
+    with _BurstResponses() as on_card:
+        rep = dryrun.service_cell(device=device)
+    with _BurstResponses() as on_cpu:
+        ref = dryrun.service_cell(device=torch.device("cpu"))
+    reqs = make_requests(burst=rep["burst"], tenants=rep["tenants"],
+                         seed=rep["seed"])
+    exact, worst = _responses_alike("service cell", reqs, on_card.out,
+                                    on_cpu.out)
+    st = rep["stats"]
+    log(f"service cell on the card: {st['requests_served']} requests, "
+        f"{st['requests_per_s']:.1f} req/s, p50 {st['latency_p50_ms']:.1f} "
+        f"ms, p99 {st['latency_p99_ms']:.1f} ms, "
+        f"{st['calls_per_request']:.3f} calls/request, replay "
+        f"{'bit-identical' if rep['replay_ok'] else 'MISMATCH'}, ledger "
+        f"windows {rep['ledger_windows']}; against the CPU's cell: "
+        f"{len(exact)} integer / threshold responses bit-identical (digest "
+        f"{response_digest({r: on_card.out[r] for r in exact})[:16]}), log "
+        f"stages within {_ulp_note(worst)}; whole digests {rep['digest'][:16]}"
+        f" card, {ref['digest'][:16]} CPU ({card_line()})")
+    require(rep["replay_ok"] and ref["replay_ok"], "the service cell's "
+            "journal does not replay bit-identically")
+    require(rep["ledger_windows"] == ref["ledger_windows"],
+            "the service cell's ledger windows differ from the CPU's")
+    require(st["requests_served"] == rep["burst"]
+            and st["requests_failed"] == 0, "the service cell dropped "
+                                            "requests")
+
+
+def _served_bytes(arch: str, batch: int, prompt: int, ctx: int,
+                  layers: int = 0) -> dict:
+    """The dry run's argument bytes of serving ``arch`` (float32
+    parameters, as the port serves them) at ``batch`` prompts of
+    ``prompt`` tokens with a decode cache of ``ctx`` positions, on one
+    device; ``layers`` cuts the depth."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_auto
+    from repro_torch.models import registry
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.scaled(n_layers=layers)
+    model = registry.build(cfg, "meta")
+    specs = {"tokens": torch.empty((batch, prompt), dtype=torch.int32,
+                                   device="meta"),
+             "cache": model.init_cache(batch, ctx)}
+    if cfg.family == "vlm":
+        specs["patches"] = torch.empty(
+            (batch, cfg.vision_prefix, cfg.d_model), dtype=torch.bfloat16,
+            device="meta")
+    if cfg.family == "encdec":
+        specs["frames"] = torch.empty((batch, cfg.enc_ctx, cfg.d_model),
+                                      dtype=torch.bfloat16, device="meta")
+    one = make_mesh_auto((1, 1), ("data", "model"), device="meta")
+    return dryrun.argument_bytes(model, specs, one, "decode")
+
+
+def phase_dryrun_memory(device, measured: dict) -> None:
+    """The dry run against the card: the argument bytes of each config at
+    the shape and dtypes this run served or trained it with must not
+    exceed the ``max_memory_allocated`` peak measured for it (a lower
+    bound above the card's own count is wrong).  Then, for the configs
+    never served, the argument bytes at batch 64, context 160, and the
+    most layers whose bytes fit the card's memory less the largest
+    measured peak-minus-prediction."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_auto
+    from repro_torch.models import registry
+    gib = 2 ** 30
+    margin = 0
+    for (arch, kind), peaks in sorted(measured.items()):
+        if kind == "train":
+            cfg = _train_cfg(TRAIN_LAYERS)
+            tok = torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                              device="meta")
+            pred = dryrun.argument_bytes(
+                registry.build(cfg, "meta"), {"tokens": tok, "labels": tok},
+                make_mesh_auto((1, 1), ("data", "model"), device="meta"),
+                "train")
+            shape = (f"{cfg.n_layers} layers, batch {TRAIN_BATCH} x "
+                     f"{TRAIN_SEQ}, float32 params + m + v")
+        else:
+            ctx = DRYRUN_CTX if arch == SERVE_ARCH else FAMILY_CTX
+            pred = _served_bytes(arch, SERVE_BATCH, SERVE_PROMPT, ctx)
+            shape = f"batch {SERVE_BATCH}, context {ctx}, float32 params"
+        low = min(peaks)
+        margin = max(margin, max(peaks) - pred["total"])
+        log(f"dry run vs card: {arch} {kind} ({shape}): argument bytes "
+            f"{pred['total'] / gib:.3f} GiB (params {pred['params'] / gib:.3f}"
+            f", optimizer {pred['opt_state'] / gib:.3f}, cache "
+            f"{pred['cache'] / gib:.3f}, inputs {pred['inputs'] / gib:.4f}) "
+            f"<= measured peak {low / gib:.3f} GiB (of {len(peaks)} runs): "
+            f"ratio {pred['total'] / low:.4f}")
+        require(pred["total"] <= low, f"dry run: {arch} {kind} predicts "
+                f"{pred['total']} B, more than the card's peak {low} B")
+    require(len(measured) == 1 + 1 + len(FAMILY_ARCHS), "dry run: the "
+            f"card's peaks were not all measured ({sorted(measured)})")
+    total = torch.cuda.mem_get_info(device)[1]
+    budget = total - margin
+    log(f"dry run: card memory {total / gib:.2f} GiB, largest measured "
+        f"peak - prediction {margin / gib:.2f} GiB, budget "
+        f"{budget / gib:.2f} GiB ({card_line()})")
+    for arch in DRYRUN_UNSERVED:
+        cfg = get_config(arch)
+        full = _served_bytes(arch, SERVE_BATCH, SERVE_PROMPT, DRYRUN_CTX)
+        b1, b2 = (_served_bytes(arch, SERVE_BATCH, SERVE_PROMPT, DRYRUN_CTX,
+                                layers=n)["total"] for n in (1, 2))
+        per = b2 - b1
+        require(b1 + (cfg.n_layers - 1) * per == full["total"],
+                f"dry run: {arch}'s bytes are not linear in its layers")
+        fit = min(cfg.n_layers, max(0, (budget - b1) // per + 1))
+        log(f"dry run: {arch} unserved, batch {SERVE_BATCH}, context "
+            f"{DRYRUN_CTX}, float32 params: {full['total'] / gib:.2f} GiB "
+            f"at {cfg.n_layers} layers (params {full['params'] / gib:.2f}, "
+            f"cache {full['cache'] / gib:.2f}); {per / gib:.4f} GiB a layer;"
+            f" fits the card at {fit} of {cfg.n_layers} layers")
+
+
+def phase_dryrun_path(device, measured: dict) -> dict:
+    """The dry run: its CLI in subprocesses, then - kernel A's counts set
+    to 0 just before and read just after - ``rng_fanout_cell`` and
+    ``service_cell`` on the card; then its argument bytes against the
+    peaks the serve, train and families paths measured."""
+    from repro_torch.kernels import thundering_block as tb
+    phase_dryrun_cli()
+    tb.reset_counts()
+    phase_dryrun_fanout(device)
+    phase_dryrun_service(device)
+    launches = {"thundering_ctr": tb.thundering_ctr.launches}
+    plain_runs = (tb.thundering_ctr_plain.cuda_runs
+                  + tb.thundering_faithful_plain.cuda_runs)
+    log(f"dryrun path: launches {launches}; plain versions run on the "
+        f"card: {plain_runs}")
+    require(launches["thundering_ctr"] > 0, "kernel A never launched on "
+                                            "the dryrun path")
+    require(plain_runs == 0, "a plain version ran on a CUDA tensor")
+    phase_dryrun_memory(device, measured)
     return launches
 
 
@@ -3497,10 +3860,17 @@ def main() -> int:
                                        device)
         by_path["service"] = run_phase("service path", phase_service_path,
                                        device)
-        by_path["serve"] = run_phase("serve path", phase_serve_path, device)
-        by_path["train"] = run_phase("train path", phase_train_path, device)
+        # the peak memory of each config's serve / train runs, for the
+        # dry run's check
+        measured = {}
+        by_path["serve"] = run_phase("serve path", phase_serve_path, device,
+                                     measured)
+        by_path["train"] = run_phase("train path", phase_train_path, device,
+                                     measured)
         by_path["families"] = run_phase("families path", phase_families_path,
-                                        device)
+                                        device, measured)
+        by_path["dryrun"] = run_phase("dryrun path", phase_dryrun_path,
+                                      device, measured)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,4 +1,5 @@
-"""Shape grid and config registry (the reference's ``configs/base.py``).
+"""Shape grid, config registry and ``meta`` input specs (the reference's
+``configs/base.py``).
 
 Shapes (assigned):
   train_4k     seq 4096   global_batch 256   (training)
@@ -6,16 +7,16 @@ Shapes (assigned):
   decode_32k   ctx 32768  global_batch 128   (one-token decode step)
   long_500k    ctx 524288 global_batch 1     (long-context decode;
                sub-quadratic archs only — full-attention archs skip)
-
-``input_specs`` (abstract inputs for the dry run) waits for the port of
-``launch/dryrun``.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
+import torch
+
+from repro_torch.models import layers as L
 from repro_torch.models.common import ArchConfig
 
 
@@ -74,3 +75,43 @@ def runnable_cells():
         for shape in SHAPES:
             if shape_skipped(cfg, shape) is None:
                 yield arch, shape
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape_name: str,
+                model=None) -> Dict[str, Any]:
+    """``meta`` tensor stand-ins for one step of the given kind.
+
+    train  -> {"tokens", "labels"} (+ "patches"/"frames")
+    prefill-> {"tokens"} (+ extras)
+    decode -> {"token", "cache", "pos"} - the cache from
+              ``Model.init_cache`` on ``meta`` (no allocation; ``model``
+              must be a ``meta`` model when given).
+    """
+    spec = SHAPES[shape_name]
+    B, S = spec.global_batch, spec.seq_len
+    extras: Dict[str, Any] = {}
+    if cfg.family == "vlm":
+        extras["patches"] = _meta((B, cfg.vision_prefix, cfg.d_model),
+                                  L.COMPUTE_DTYPE)
+    if cfg.family == "encdec":
+        extras["frames"] = _meta((B, cfg.enc_ctx, cfg.d_model),
+                                 L.COMPUTE_DTYPE)
+    if spec.kind == "train":
+        return {"tokens": _meta((B, S), torch.int32),
+                "labels": _meta((B, S), torch.int32), **extras}
+    if spec.kind == "prefill":
+        return {"tokens": _meta((B, S), torch.int32), **extras}
+    if spec.kind == "decode":
+        from repro_torch.models import registry
+        m = model or registry.build(cfg, "meta")
+        if m.device.type != "meta":
+            raise ValueError(f"input_specs builds the decode cache on "
+                             f"meta only, not on {m.device}")
+        return {"token": _meta((B, 1), torch.int32),
+                "cache": m.init_cache(B, S),
+                "pos": _meta((), torch.int32)}
+    raise ValueError(spec.kind)

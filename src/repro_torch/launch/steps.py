@@ -4,10 +4,8 @@
     with the per-step ThundeRiNG substream ``rng = derive(root, step)``
     (deterministic, device-independent).
   * prefill_step / decode_step: the serving path.
-
-The sharding plumbing of the reference (``param_sharding_tree``,
-``batch_sharding``, ``opt_sharding_like``) belongs to the dry run
-(ROADMAP.md queue A item 8).
+  * param_sharding_tree / batch_sharding / opt_sharding_like: the spec
+    trees the dry run (``launch/dryrun.py``) reads per-device bytes from.
 """
 from __future__ import annotations
 
@@ -16,9 +14,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import stream as tstream
-from repro_torch.models import registry
-from repro_torch.models.common import flatten, unflatten
-from repro_torch.optim import adamw_update, cosine_schedule
+from repro_torch.models import registry, sharding
+from repro_torch.models.common import ArchConfig, flatten, unflatten
+from repro_torch.optim import AdamWState, adamw_update, cosine_schedule
 
 F32 = torch.float32
 
@@ -112,3 +110,35 @@ def make_serve_fns(model: registry.Model):
         return model.decode(params, cache, token, pos)
 
     return prefill_step, decode_step
+
+
+# ---------------------------------------------------------------------------
+# sharding plumbing
+# ---------------------------------------------------------------------------
+
+def param_sharding_tree(model: registry.Model, params, specs, mesh,
+                        mode: str = "train"):
+    """(sharding tree, spec tree) of ``params`` on ``mesh``; in one
+    process the two are the same tree of specs."""
+    flat = flatten(params)
+    tree = unflatten(dict(sharding.param_pspecs(specs, flat, mesh, mode)))
+    return sharding.tree_shardings(mesh, tree), tree
+
+
+def batch_sharding(cfg: ArchConfig, batch_specs: Dict[str, Any], mesh):
+    out = {}
+    for name, spec in batch_specs.items():
+        if name == "cache":
+            out[name] = sharding.tree_shardings(
+                mesh, sharding.cache_pspecs(cfg, spec, mesh))
+        elif name == "pos":
+            out[name] = ()
+        else:
+            bspec = sharding.batch_pspec(mesh, spec.shape[0])
+            out[name] = bspec + (None,) * (len(spec.shape) - 1)
+    return out
+
+
+def opt_sharding_like(param_shardings, mesh) -> AdamWState:
+    """AdamWState sharding: step replicated; m/v like params."""
+    return AdamWState((), param_shardings, param_shardings)

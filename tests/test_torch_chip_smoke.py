@@ -1,0 +1,88 @@
+"""chip_smoke.py's MoE routing check on the CPU, on synthetic recordings.
+
+``_card_against_cpu`` leaves out every row whose MoE group had a token
+that the card routed otherwise, and ``_flips_are_near_ties`` holds each
+such token to a near-tie: its top-k gap on the CPU within twice the
+largest router-probability difference of the call.  A flip across a wide
+gap is a routing fault even when it moves one row of eight, which the
+half-of-the-rows floor alone lets pass.
+"""
+from __future__ import annotations
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def cs():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+ROWS, K = 8, 2
+
+
+def _call(probs, experts=None, gs=1):
+    """One ``_MoeRoutes`` record of a call over (tokens, E) probabilities;
+    the chosen experts are the top-k of ``probs`` unless given."""
+    if experts is None:
+        experts = torch.sort(probs, dim=-1, descending=True,
+                             stable=True).indices[:, :K]
+    return (experts.sort(-1).values,
+            torch.zeros(probs.shape[0], K, dtype=torch.bool), gs, probs)
+
+
+def _recordings(flip_gap):
+    """A decode-like call (8 tokens, one per row, 4 experts) on the CPU
+    and the card, every probability within 1e-6, where the card chose
+    experts {0, 2} for token 3, whose 2nd and 3rd probabilities on the
+    CPU are ``flip_gap`` apart; then a later call where token 3's row
+    differs by far more (it diverged already)."""
+    g = torch.Generator().manual_seed(5)
+    base = torch.tensor([0.4, 0.3, 0.2, 0.1]).repeat(ROWS, 1)
+    cpu = base + 1e-3 * torch.rand(ROWS, 4, generator=g)
+    cpu[3] = torch.tensor([0.45, 0.25 + flip_gap / 2, 0.25 - flip_gap / 2,
+                           0.05])
+    card = cpu + 1e-6 * (2 * torch.rand(ROWS, 4, generator=g) - 1)
+    experts = torch.sort(cpu, dim=-1, descending=True,
+                         stable=True).indices[:, :K]
+    experts[3] = torch.tensor([0, 2])
+    later_card = base.clone()
+    later_card[3] = torch.tensor([0.1, 0.2, 0.3, 0.4])
+    return ([_call(cpu), _call(base)],
+            [_call(card, experts), _call(later_card)])
+
+
+def test_a_near_tie_flip_passes(cs):
+    cpu, card = _recordings(flip_gap=1e-7)
+    rows, flipped = cs._rows_routed_alike(cpu, card, ROWS)
+    assert flipped == 2 and int(rows.sum()) == ROWS - 1 and not rows[3]
+    ties = cs._flips_are_near_ties(cpu, card, ROWS)
+    assert ties["flips"] == 2 and ties["held"] == 1
+    assert ties["gap"] <= 2 * ties["eps"] <= 2 * cs.MOE_PROB_ATOL
+
+
+def test_a_wide_gap_flip_of_one_row_fails(cs):
+    cpu, card = _recordings(flip_gap=0.1)
+    rows, _ = cs._rows_routed_alike(cpu, card, ROWS)
+    assert 2 * int(rows.sum()) >= ROWS          # the old check passes
+    with pytest.raises(cs.SmokeFailure, match="top-2 gap of 0.1"):
+        cs._flips_are_near_ties(cpu, card, ROWS)
+
+
+def test_router_probabilities_past_the_limit_fail(cs):
+    cpu, card = _recordings(flip_gap=1e-7)
+    experts, dropped, gs, probs = card[0]
+    probs = probs.clone()
+    probs[5, 0] += 2 * cs.MOE_PROB_ATOL        # routes alike, far off
+    card[0] = (experts, dropped, gs, probs)
+    with pytest.raises(cs.SmokeFailure, match="router probabilities"):
+        cs._flips_are_near_ties(cpu, card, ROWS)

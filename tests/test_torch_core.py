@@ -327,7 +327,9 @@ PORT_MODULES = [
     "repro_torch.models.convert", "repro_torch.data",
     "repro_torch.data.pipeline", "repro_torch.launch",
     "repro_torch.launch.train", "repro_torch.launch.steps",
-    "repro_torch.launch.serve", "repro_torch.optim",
+    "repro_torch.launch.serve", "repro_torch.launch.analysis",
+    "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+    "repro_torch.optim",
     "repro_torch.optim.adamw", "repro_torch.optim.schedule",
     "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint"]
 
@@ -386,6 +388,11 @@ def test_port_imports_neither_jax_nor_reference():
             "'gemma_7b')), steps=1, global_batch=2, seq_len=8, ckpt_dir=d, "
             "save_every=1, device='cpu')\n"
             "assert int(o.step) == 1 and len(l) == 1\n"
+            "from repro_torch.launch import dryrun\n"
+            "assert dryrun.lower_cell('qwen2_vl_72b', 'decode_32k', "
+            "multi_pod=True)['n_params'] > 7e10\n"
+            "assert dryrun.rng_fanout_cell(num_streams=8, num_steps=2, "
+            "device='cpu')['bits']['equal_to_generate']\n"
             "assert not {'jax', 'repro', 'ml_dtypes'} & set(sys.modules)\n"
             "print('isolated')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -37,7 +37,7 @@ def main() -> int:
     try:
         cs.run_phase("build", cs.phase_build)
         launches = cs.run_phase("families path", cs.phase_families_path,
-                                torch.device("cuda"))
+                                torch.device("cuda"), {})
     except cs.SmokeFailure as e:
         print(f"families_path: FAILED: {e}", file=sys.stderr)
         return 1

@@ -39,7 +39,7 @@ def main() -> int:
     try:
         cs.run_phase("build", cs.phase_build)
         cs.run_phase("train path", cs.phase_train_path,
-                     torch.device("cuda"))
+                     torch.device("cuda"), {})
     except cs.SmokeFailure as e:
         print(f"train_path: FAILED: {e}", file=sys.stderr)
         return 1
