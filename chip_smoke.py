@@ -108,7 +108,8 @@ MATVEC_OPS = (199.0, 239.0)
 
 # Earlier times at the same shapes, logged beside this run's (chip_smoke
 # runs on NVIDIA H100 80GB HBM3, 700.00 W, as PERF.md's kernel table gives
-# them): kernel C's from the run before its redesign, the others' from the
+# them): kernel C's from the run before its redesign, kernel F's from the
+# last run before its redesign (one cluster per row), the others' from the
 # run before the redesign of kernels A and B.
 EARLIER_MS = {"thundering_ctr splitmix64 bits float32": 0.2525,
               "thundering_ctr fmix32 bits float32": 0.2065,
@@ -120,7 +121,7 @@ EARLIER_MS = {"thundering_ctr splitmix64 bits float32": 0.2525,
               "pi_partials": 1.0349, "option_partials": 1.9881,
               "fused_dropout_2d torch.bfloat16": 0.2283,
               "fused_dropout_2d torch.float32": 0.3045,
-              "gumbel_argmax B=64": 0.1000, "gumbel_argmax B=256": 0.3569}
+              "gumbel_argmax B=64": 0.0948, "gumbel_argmax B=256": 0.3391}
 
 # The applications' kernels, counted from ``cuobjdump -sass`` of their
 # sm_90a build (nvcc 12.8) with tools/sass_loop_counts.py over the hot
@@ -166,20 +167,31 @@ DROPOUT_RATE = 0.1
 
 # The inference tier at full width: gemma-7b's vocabulary
 # (src/repro/configs/gemma_7b.py), the harness's default decode batch of 64
-# slots and the reference kernel's batch tile of 256.
+# slots, the reference kernel's batch tile of 256 and a small batch of 8.
+# Kernel F is also held against its plain version at one and 8 rows (one
+# cluster of 16 blocks a row), at 65 rows of 50304 (past one wave), and at
+# glm4-9b's and qwen's vocabularies (151552, 152064).
 INF_VOCAB = 256000
-INF_BATCHES = (64, 256)
+INF_BATCHES = (64, 256, 8)
 INF_SHAPES = [(INF_VOCAB, 64), (INF_VOCAB, 256), (1000, 130), (300, 20),
-              (64, 8)]
+              (64, 8), (INF_VOCAB, 1), (INF_VOCAB, 8), (50304, 65),
+              (151552, 64), (152064, 64)]
 INF_OPTIONS = [(1.0, 0), (1.25, 0), (1.0, 16), (2.0, 4)]
 INF_SEQUENCES = 128
 INF_KILL_SEQUENCES = 32
 # Kernel F per vocabulary element, counted from ``cuobjdump -sass`` of its
 # sm_90a build (nvcc 12.8) with tools/sass_loop_counts.py over the
-# splitmix64 grid-stride loop, 0e90-15f0 (unmasked elements take all of
-# it): 34 INT32 of 119 instructions; 45 of them are FP32 (the two logf are
-# polynomials on the FMA pipe, no MUFU).  (INT32, all) per element.
-GA_OPS_PER_ELEMENT = (34.0, 119.0)
+# splitmix64 grid-stride loop of gumbel_argmax_kernel<1024, 0>, the block
+# size of the main paths' plans (unmasked elements take all of it): one
+# trip scores 4 elements, 0a40-22b0: 134 INT32 (84 IMAD beside them on the
+# FMA pipe, 136 FP32, no MUFU) of 392 instructions.  (INT32, all) per
+# element.  GA_OPS_PER_ELEMENT_ATOMIC is the count of kernel F's earlier
+# design (a Brown jump per thread, the 64-bit mix, an atomicMax per block
+# and three launches a call; its loop 0e90-15f0: 34 INT32 of 119): its
+# bound is logged beside the new one, so the design is judged against the
+# earlier work as well as its own.
+GA_OPS_PER_ELEMENT = (134 / 4, 392 / 4)
+GA_OPS_PER_ELEMENT_ATOMIC = (34.0, 119.0)
 
 EXACT_STAGES = ("bits", "uniform", "bernoulli", "poisson", "categorical")
 STAGES = [
@@ -298,6 +310,49 @@ def host_ms(fn, reps: int, warmup: int = 2) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / reps * 1e3
+
+
+def enqueue_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean ms per call of ``fn`` on the host clock with no synchronize
+    inside: the host's enqueue alone.  When it exceeds the device's time
+    per call, back-to-back CUDA-event timings measure the host."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def device_ops(fn, reps: int, warmup: int = 2) -> dict:
+    """``fn`` under ``torch.profiler`` over ``reps`` calls: {device op
+    name: (device ms per launch, launches recorded per call)}; kernels,
+    memsets and copies each count once per launch.  Late in a long process
+    the profiler may record fewer launches than ran, so a time is taken
+    per recorded launch.  {} when it recorded no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count = {}, {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.count:
+            us[evt.key] = us.get(evt.key, 0.0) + float(
+                getattr(evt, "self_device_time_total", 0.0)
+                or getattr(evt, "self_cuda_time_total", 0.0))
+            count[evt.key] = count.get(evt.key, 0) + evt.count
+    return {k: (us[k] / count[k] / 1e3, count[k] / reps) for k in us}
 
 
 # ---------------------------------------------------------------------------
@@ -1218,21 +1273,26 @@ def _ga_check(tag: str, logits, h, x0, ctr, th, inv_temp, deco="splitmix64"):
 
 def phase_inference_parity(device) -> dict:
     """Kernel F against its plain version on the card: every shape x
-    (inv_temp, top_k) x decorrelator, counters below and past 2**32, the
-    reference's (V, B) layout as a view, all-masked columns, top-1, and
-    scores that tie at -0.0 / +0.0."""
+    (inv_temp, top_k) x decorrelator, counters below and past 2**32 and a
+    window ending where the counter wraps (2**64 - V), the reference's
+    (V, B) layout as a view, all-masked rows, top-1, and scores that tie
+    at -0.0 / +0.0."""
     import torch
     from repro_torch.core import engine
     from repro_torch.inference.kernels import gumbel_argmax as ga
     n = 0
     t0 = time.perf_counter()
+    bad = ga.gumbel_mismatches(device)
+    log(f"kernel F's branch-free logf against tb_gumbel over all 2^24 "
+        f"uniforms: {bad} differ")
+    require(bad == 0, "kernel F's gumbel noise differs from tb_gumbel's")
     for V, B in INF_SHAPES:
         logits, h, x0 = _ga_case(V, B, device)
         for inv_temp, top_k in INF_OPTIONS:
             th = (torch.topk(logits, top_k, dim=-1).values[:, -1] if top_k
                   else torch.full((B,), float("-inf"), device=device))
             for deco in ("splitmix64", "fmix32"):
-                for ctr in (977, HIGH_OFFSET):
+                for ctr in (977, HIGH_OFFSET, 2 ** 64 - V):
                     got = _ga_check(f"V={V} B={B} inv_temp={inv_temp} "
                                     f"top_k={top_k} {deco} ctr={ctr}",
                                     logits, h, x0, ctr, th, inv_temp, deco)
@@ -1379,11 +1439,11 @@ def phase_inference(device) -> dict:
     return launches
 
 
-def _ga_bound(V: int, B: int):
+def _ga_bound(V: int, B: int, ops=GA_OPS_PER_ELEMENT):
     """Kernel F's bound at (V, B): (ms, "bytes" or "operations", the
     bytes' ms, the operations' ms): the logits read once and B tokens,
-    leaf words and thresholds; its SASS counts per element."""
-    int_ops, all_ops = GA_OPS_PER_ELEMENT
+    leaf words and thresholds; ``ops``, its SASS counts per element."""
+    int_ops, all_ops = ops
     n = V * B
     t_bytes = (n * 4 + B * (8 + 4 + 4)) / HBM_BYTES_PER_S * 1e3
     t_ops = max(n * int_ops / INT32_OPS_PER_S,
@@ -1405,9 +1465,32 @@ def _philox_gumbel_ms(logits, gen) -> float:
     return time_cuda(philox, reps=20)
 
 
+def _ga_device(call) -> str:
+    """Kernel F's own device time per launch of ``call`` under
+    ``torch.profiler``, its device launches per call and the host's
+    enqueue ms per call, as one phrase.  The profiler must see kernel F
+    and nothing else on the device, at most once per call (late in a long
+    process it may record fewer launches than ran: the phrase says how
+    many)."""
+    reps = 50
+    ops = device_ops(call, reps=reps)
+    if not ops:
+        return "device ms: not measured (the profiler recorded no device time)"
+    require(len(ops) == 1 and "gumbel_argmax_kernel" in next(iter(ops))
+            and next(iter(ops.values()))[1] <= 1.0,
+            f"a kernel F call is not one device launch: {ops}")
+    (f_ms, per_call), = ops.values()
+    return (f"profiler: kernel F {f_ms:.4f} ms of device time per launch, "
+            f"1 device launch per call and no other device op "
+            f"({round(per_call * reps)} of {reps} launches recorded); host "
+            f"enqueue {enqueue_ms(call, reps=reps):.4f} ms per call")
+
+
 def phase_inference_timing(device) -> list:
-    """Kernel F at (V, B) = (256000, 64) and (256000, 256): ms, elements
-    per s, bound, plain ms, and two torch samplers on the same logits."""
+    """Kernel F at (V, B) = (256000, 64), (256000, 256) and (256000, 8):
+    ms, elements per s, its device time and launches per call under the
+    profiler, bound (this design's count and the earlier design's),
+    plain ms, and two torch samplers on the same logits."""
     import torch
     from repro_torch.inference.kernels import gumbel_argmax as ga
     rows = []
@@ -1420,21 +1503,26 @@ def phase_inference_timing(device) -> list:
         logits, h, x0 = _ga_case(V, B, device)
         th = torch.full((B,), float("-inf"), device=device)
         out = torch.empty(B, dtype=torch.int32, device=device)
-        ms = time_cuda(lambda: ga.fused_argmax(logits, h, x0, 977, th,
-                                               inv_temp=1.0, out=out),
-                       reps=50)
+
+        def call():
+            ga.fused_argmax(logits, h, x0, 977, th, inv_temp=1.0, out=out)
+        ms = time_cuda(call, reps=50)
+        prof = _ga_device(call)
         plain_ms = time_cuda(lambda: ga.fused_argmax_plain(
             logits, h, x0, 977, th, inv_temp=1.0), reps=1, warmup=1)
         lib_ms = _philox_gumbel_ms(logits, gen)
         multi_ms = time_cuda(lambda: torch.multinomial(
             torch.softmax(logits * 1.0, -1), 1, generator=gen), reps=20)
         b_ms, b_by, t_bytes, t_ops = _ga_bound(V, B)
+        old_ms = _ga_bound(V, B, GA_OPS_PER_ELEMENT_ATOMIC)[0]
         log(f"  gumbel_argmax (V, B) = ({V}, {B}): {ms:.4f} ms"
             f"{_was(f'gumbel_argmax B={B}')} = "
             f"{n / (ms * 1e-3) / 1e9:.1f} G elements/s, "
             f"{n * 4 / (ms * 1e-3) / 1e9:.1f} GB/s of logits; bound "
             f"{b_ms:.4f} ms by {b_by} (bytes {t_bytes:.4f} ms, operations "
-            f"{t_ops:.4f} ms; {b_ms / ms * 100:.1f}% of the bound's speed); "
+            f"{t_ops:.4f} ms; {b_ms / ms * 100:.1f}% of the bound's speed; "
+            f"the earlier design's count: {old_ms:.4f} ms, "
+            f"{old_ms / ms * 100:.1f}%); {prof}; "
             f"plain {plain_ms:.2f} ms; torch Philox gumbel-max (rand, "
             f"-log(-log u), scaled add, argmax) {lib_ms:.4f} ms; "
             f"torch.multinomial(softmax) {multi_ms:.4f} ms")
@@ -3314,10 +3402,12 @@ def phase_families_draws(device) -> None:
 
 def phase_families_sampler(device) -> None:
     """Kernel F against its plain version at each config's vocabulary and
-    batch 64 (every (inv_temp, top_k) option, counters below and past
-    2**32; the odd vocabularies end in a ragged V tile), then its time
-    there beside its bound and torch's Philox Gumbel-max on the same
-    logits."""
+    batch 64 (every (inv_temp, top_k) option, both decorrelators,
+    counters below and past 2**32 and a window ending where the counter
+    wraps; the odd
+    vocabularies end in a ragged V tile), then its time there (CUDA
+    events; its device time and launches per call under the profiler)
+    beside its bound and torch's Philox Gumbel-max on the same logits."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.inference.kernels import gumbel_argmax as ga
@@ -3330,22 +3420,28 @@ def phase_families_sampler(device) -> None:
         for inv_temp, top_k in INF_OPTIONS:
             th = (torch.topk(logits, top_k, dim=-1).values[:, -1] if top_k
                   else torch.full((B,), float("-inf"), device=device))
-            for ctr in (977, 2 ** 32 + 12345):
-                _ga_check(f"{arch} (V, B) = ({V}, {B}) inv_temp "
-                          f"{inv_temp} top_k {top_k} ctr {ctr}", logits, h,
-                          x0, ctr, th, inv_temp)
+            for deco in ("splitmix64", "fmix32"):
+                for ctr in (977, 2 ** 32 + 12345, 2 ** 64 - V):
+                    _ga_check(f"{arch} (V, B) = ({V}, {B}) inv_temp "
+                              f"{inv_temp} top_k {top_k} {deco} ctr {ctr}",
+                              logits, h, x0, ctr, th, inv_temp, deco)
         th = torch.full((B,), float("-inf"), device=device)
         out = torch.empty(B, dtype=torch.int32, device=device)
-        ms = time_cuda(lambda: ga.fused_argmax(logits, h, x0, 977, th,
-                                               inv_temp=1.0, out=out),
-                       reps=50)
+
+        def call():
+            ga.fused_argmax(logits, h, x0, 977, th, inv_temp=1.0, out=out)
+        ms = time_cuda(call, reps=50)
+        prof = _ga_device(call)
         b_ms, b_by, _, _ = _ga_bound(V, B)
+        old_ms = _ga_bound(V, B, GA_OPS_PER_ELEMENT_ATOMIC)[0]
         lib_ms = _philox_gumbel_ms(logits, gen)
         log(f"kernel F at {arch}'s (V, B) = ({V}, {B}): equal to the plain "
-            f"version ({len(INF_OPTIONS)} options x 2 counters); {ms:.4f} "
+            f"version ({len(INF_OPTIONS)} options x 2 decorrelators x 3 "
+            f"counters); {ms:.4f} "
             f"ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / ms * 100:.1f}% of "
-            f"the bound's speed); torch Philox gumbel-max {lib_ms:.4f} ms "
-            f"({card_line()})")
+            f"the bound's speed; the earlier design's count: "
+            f"{old_ms:.4f} ms, {old_ms / ms * 100:.1f}%); {prof}; torch "
+            f"Philox gumbel-max {lib_ms:.4f} ms ({card_line()})")
         del logits
 
 

@@ -33,13 +33,19 @@ scores are all -inf (``thresh = +inf``, or every logit -inf) gets token 0.
 ``fused_argmax`` takes the plain version ``fused_argmax_plain`` for
 tensors on the CPU and launches kernel F for CUDA tensors; ``launches``
 counts the launches and the plain version's ``cuda_runs`` its runs on a
-card.
+card.  On the card a call is one launch of one thread block cluster per
+row (``launch_plan``; the card's cluster occupancy and the in-block jump
+table ``affine_table`` are set up once per device), with no scratch
+tensor and no host jump: the kernel takes ``x0`` and ``ctr`` as they
+are.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+import struct
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import engine, lcg, sampler as sampler_mod
@@ -55,19 +61,141 @@ _I32_MAX = 2 ** 31 - 1
 _PLAIN_ELEMS = 2 ** 22
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.library("gumbel_argmax")
-    if not getattr(lib, "_ga_typed", False):
-        ptr, i64, u64_t, cint = (ctypes.c_void_p, ctypes.c_longlong,
-                                 ctypes.c_uint64, ctypes.c_int)
-        lib.ga_launch.argtypes = [ptr, i64, i64, cint, cint, ptr, ptr, u64_t,
-                                  u64_t, ctypes.c_float, cint, ptr, ptr, ptr,
-                                  ptr]
+#: ga_launch's argument block, ``struct GaArgs`` of gumbel_argmax.cu:
+#: every field 8 bytes, packed in one call so that ctypes converts one
+#: pointer rather than twenty numbers (~0.2 us each)
+_LAUNCH_ARGS = struct.Struct("<QqqqqQQQQdqqqQQQQQqQ")
+#: block sizes kernel F is built for
+BLOCK_THREADS = (256, 512, 1024)
+#: the largest cluster kernel F takes, the card's non-portable maximum:
+#: 8 is portable, more needs the non-portable cluster attribute, which
+#: ``ga_configure`` sets.  Clusters of up to 16 measured faster than of up
+#: to 8 where B < 64 and the same above (tools/kernel_times.py)
+CLUSTER_MOST = 16
+
+
+class LaunchPlan(NamedTuple):
+    """Kernel F's grid for one (B, V): per row one cluster of ``cluster``
+    blocks of ``threads`` threads, G = cluster * threads threads, and the
+    root's affine map of G steps, (jump_a, jump_c)."""
+    cluster: int
+    threads: int
+    jump_a: int
+    jump_c: int
+
+
+def launch_plan(B: int, V: int, max_clusters: Mapping[Tuple[int, int], int]
+                ) -> LaunchPlan:
+    """The (cluster, threads) of a (B, V) call.
+
+    ``max_clusters[threads, cluster]`` is how many such clusters the card
+    holds at once (0 or missing: it cannot launch one).  Every block must own a
+    vocabulary entry.  Among the sizes whose B clusters fit in one wave,
+    the one with the most threads per row that own an entry wins (ties:
+    fewer threads per row, then the larger block); when none fits, the
+    one with the fewest threads per row.
+    """
+    best = None
+    for threads in BLOCK_THREADS:
+        for c in range(1, CLUSTER_MOST + 1):
+            resident = max_clusters.get((threads, c), 0)
+            if resident < 1 or (c - 1) * threads >= V:
+                continue
+            row = c * threads
+            rank = (True, min(row, V), -row, threads) if B <= resident \
+                else (False, 0, -row, threads)
+            if best is None or rank > best[0]:
+                best = (rank, c, threads)
+    if best is None:
+        raise RuntimeError("kernel F: no cluster of any block size fits "
+                           "this card")
+    _, c, threads = best
+    jump_a, jump_c = lcg.lcg_skip(c * threads)
+    return LaunchPlan(c, threads, jump_a, jump_c)
+
+
+def affine_table(threads: int) -> np.ndarray:
+    """(threads, 2) uint64: (A_t, C_t) of t root steps for t in [0,
+    threads), ``lcg.block_affine_constants(threads)`` as kernel F reads
+    it: thread t of a block turns the block's root into its own."""
+    a_hi, a_lo, c_hi, c_lo = (x.astype(np.uint64)
+                              for x in lcg.block_affine_constants(threads))
+    sh = np.uint64(32)
+    return np.stack([(a_hi << sh) | a_lo, (c_hi << sh) | c_lo], axis=1)
+
+
+class _Card:
+    """Kernel F's state on one device, made once: the library, the
+    resident cluster counts per (threads, cluster), the uploaded affine
+    tables and the launch plans by (B, V)."""
+
+    def __init__(self, device: torch.device):
+        lib = build.library("gumbel_argmax")
+        cint = ctypes.c_int
+        lib.ga_configure.argtypes = [cint, cint, ctypes.POINTER(cint)]
+        lib.ga_configure.restype = cint
+        lib.ga_launch.argtypes = [ctypes.c_char_p]
         lib.ga_launch.restype = cint
+        lib.ga_gumbel_mismatches.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.ga_gumbel_mismatches.restype = cint
         lib.ga_error_string.argtypes = [cint]
         lib.ga_error_string.restype = ctypes.c_char_p
-        lib._ga_typed = True
-    return lib
+        self.lib, self.index = lib, device.index
+        self.max_clusters = {}
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            for threads in BLOCK_THREADS:
+                for c in range(1, CLUSTER_MOST + 1):
+                    self.check(lib.ga_configure(threads, c, ctypes.byref(n)))
+                    self.max_clusters[threads, c] = n.value
+        self.affine = {t: torch.from_numpy(affine_table(t).view(np.int64))
+                       .to(device) for t in BLOCK_THREADS}
+        self.plans: Dict[Tuple[int, int], LaunchPlan] = {}
+
+    def plan(self, B: int, V: int) -> LaunchPlan:
+        got = self.plans.get((B, V))
+        if got is None:
+            got = self.plans[B, V] = launch_plan(B, V, self.max_clusters)
+        return got
+
+    def check(self, code: int) -> None:
+        if code != 0:
+            raise RuntimeError(f"fused_argmax launch failed: "
+                               f"{self.lib.ga_error_string(code).decode()}")
+
+
+_CARDS: Dict[int, _Card] = {}
+
+
+def _current_stream(index: int) -> int:
+    """The raw handle of PyTorch's current stream on card ``index``.  The
+    private accessor is the one torch's own generated kernels launch with:
+    ~0.2 us a call, where torch.cuda.current_stream(index) builds a Stream
+    object in ~9 us (tools/kernel_times.py --sweep)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _card(device: torch.device) -> _Card:
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    card = _CARDS.get(index)
+    if card is None:
+        card = _CARDS[index] = _Card(torch.device("cuda", index))
+    return card
+
+
+def gumbel_mismatches(device) -> int:
+    """How many of the 2^24 uniforms get other noise from kernel F's
+    branch-free logf than from CUDA's logf (``tb_gumbel``, the sampler
+    stage's), counted on ``device``'s card.  Kernel F is bit-equal to its
+    plain version only when this is 0."""
+    card = _card(torch.device(device))
+    count = torch.zeros(1, dtype=torch.int32, device=f"cuda:{card.index}")
+    with torch.cuda.device(card.index):
+        card.check(card.lib.ga_gumbel_mismatches(
+            count.data_ptr(), _current_stream(card.index)))
+    return int(count.item())
 
 
 # ---------------------------------------------------------------------------
@@ -237,22 +365,18 @@ def fused_argmax(logits: torch.Tensor, h: torch.Tensor, x0: int, ctr: int,
     if logits.device.type != "cuda":
         raise ValueError(f"fused_argmax runs on cpu or cuda, not "
                          f"{logits.device}")
+    card = _card(logits.device)
+    plan = card.plan(B, V)
     h, thresh = h.contiguous(), thresh.contiguous()
-    out = torch.empty(B, dtype=torch.int32, device=logits.device) \
-        if out is None else out
-    keys = torch.empty(B, dtype=torch.int64, device=logits.device)
-    lib = _lib()
-    with torch.cuda.device(logits.device):
-        code = lib.ga_launch(
-            logits.data_ptr(), logits.stride(0), logits.stride(1), B, V,
-            h.data_ptr(), thresh.data_ptr(), lcg.advance(x0, ctr),
-            ctr & M64, float(inv_temp), DECO_IDS[deco], keys.data_ptr(),
-            out.data_ptr(),
-            None if scores_out is None else scores_out.data_ptr(),
-            torch.cuda.current_stream(logits.device).cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"fused_argmax launch failed: "
-                           f"{lib.ga_error_string(code).decode()}")
+    if out is None:
+        out = torch.empty(B, dtype=torch.int32, device=logits.device)
+    card.check(card.lib.ga_launch(_LAUNCH_ARGS.pack(
+        logits.data_ptr(), logits.stride(0), logits.stride(1), B, V,
+        h.data_ptr(), thresh.data_ptr(), x0 & M64, ctr & M64,
+        float(inv_temp), DECO_IDS[deco], plan.threads, plan.cluster,
+        card.affine[plan.threads].data_ptr(), plan.jump_a, plan.jump_c,
+        out.data_ptr(), 0 if scores_out is None else scores_out.data_ptr(),
+        card.index, _current_stream(card.index))))
     fused_argmax.launches += 1
     return out
 

@@ -296,7 +296,9 @@ def test_apps_run_on_the_kernels(cuda):
 # kernel F: fused gumbel-max sampling
 # ---------------------------------------------------------------------------
 
-GA_SHAPES = [(256000, 64), (256000, 256), (1000, 130), (300, 20), (64, 8)]
+GA_SHAPES = [(256000, 64), (256000, 256), (1000, 130), (300, 20), (64, 8),
+             (256000, 1), (256000, 8), (50304, 65), (151552, 64),
+             (152064, 64)]
 GA_OPTIONS = [(1.0, 0), (1.25, 0), (1.0, 16), (2.0, 4)]
 
 
@@ -334,11 +336,52 @@ def test_gumbel_argmax_kernel_matches_plain_version(cuda, V, B, inv_temp,
     logits, h, x0 = _ga_case(V, B, cuda)
     th = (torch.topk(logits, top_k, dim=-1).values[:, -1] if top_k
           else torch.full((B,), float("-inf"), device=cuda))
-    for ctr in (977, 2 ** 32 + 12345):
+    for ctr in (977, 2 ** 32 + 12345, 2 ** 64 - V):
         got = _ga_check(logits, h, x0, ctr, th, inv_temp, deco)
         if top_k:
             assert (logits[torch.arange(B, device=cuda), got.long()]
                     >= th).all()
+
+
+@pytest.mark.parametrize("V,B", GA_SHAPES)
+def test_gumbel_argmax_kernel_all_masked_rows_give_token_0(cuda, V, B):
+    """Rows whose scores are all -inf (every logit -inf, or thresh = +inf)
+    give token 0 and the others their plain version's token, with the
+    counter window ending where the counter wraps."""
+    logits, h, x0 = _ga_case(V, B, cuda)
+    th = torch.full((B,), float("-inf"), device=cuda)
+    logits[0] = float("-inf")
+    th[B // 2] = float("inf")
+    got = _ga_check(logits, h, x0, 2 ** 64 - V, th, 1.0)
+    assert got[0].item() == 0 and got[B // 2].item() == 0
+
+
+def test_gumbel_argmax_noise_equals_logf_for_every_uniform(cuda):
+    """Kernel F's branch-free logf gives tb_gumbel's noise, bit for bit,
+    for all 2^24 uniforms."""
+    assert ga.gumbel_mismatches(cuda) == 0
+
+
+@pytest.mark.parametrize("V,B", [(256000, 64), (50304, 65), (64, 8)])
+def test_gumbel_argmax_is_one_device_launch_per_call(cuda, V, B):
+    """Under torch.profiler a call of kernel F is one device kernel: no
+    memset, no second kernel, no copy (the profiler may record fewer
+    launches than ran, never more)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    logits, h, x0 = _ga_case(V, B, cuda)
+    th = torch.full((B,), float("-inf"), device=cuda)
+    ga.fused_argmax(logits, h, x0, 977, th, inv_temp=1.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ga.fused_argmax(logits, h, x0, 977, th, inv_temp=1.0)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.count]
+    assert len(device) == 1 and "gumbel_argmax_kernel" in device[0].key
+    assert 1 <= device[0].count <= 3
 
 
 def test_gumbel_argmax_kernel_reads_a_vocab_major_view(cuda):
@@ -728,13 +771,14 @@ def test_family_smoke_width_card_matches_cpu(cuda, arch):
             0.05 * float(want[:, P + i].abs().max())
 
 
+@pytest.mark.parametrize("deco", ["splitmix64", "fmix32"])
 @pytest.mark.parametrize("V", [50304, 49155, 50280, 32000, 51865])
-def test_gumbel_argmax_kernel_at_the_families_vocabularies(cuda, V):
+def test_gumbel_argmax_kernel_at_the_families_vocabularies(cuda, V, deco):
     """Kernel F at the vocabularies of olmoe, granite-moe, mamba2, zamba2
     and whisper (odd ones: the last V tile is ragged) at batch 64."""
     logits, h, x0 = _ga_case(V, 64, cuda)
     for inv_temp, top_k in GA_OPTIONS:
         th = (torch.topk(logits, top_k, dim=-1).values[:, -1] if top_k
               else torch.full((64,), float("-inf"), device=cuda))
-        for ctr in (0, 2 ** 32 + 12345):
-            _ga_check(logits, h, x0, ctr, th, inv_temp)
+        for ctr in (0, 2 ** 32 + 12345, 2 ** 64 - V):
+            _ga_check(logits, h, x0, ctr, th, inv_temp, deco)

@@ -14,8 +14,27 @@ included), Philox ``Tensor.random_`` over the same (T, S) as the
 yardstick, kernel C (fused dropout, bfloat16 and float32 at (32768,
 3072), with ``ops.fused_dropout`` end to end on the host clock and
 ``F.dropout`` as its yardstick), D and E (pi and option partials, 2^14
-lanes x 2^14 draws) and F (gumbel-max at (V, B) = (256000, 64) and
-(256000, 256)).
+lanes x 2^14 draws) and F (gumbel-max at (V, B) = (256000, 64),
+(256000, 256), (256000, 8) and the families' vocabularies at B = 64).
+
+Kernel F is measured three ways at each shape: the CUDA-event ms of the
+wrapper (50 back-to-back calls), the device ms per launch of each device
+op under ``torch.profiler`` (their sum is a call's device time: each op
+runs once a call) with the number of device ops, and the host's ms per
+call for 50 enqueues without a synchronize; beside them torch's
+Philox Gumbel-max on the same logits.  Its tokens and winning scores at
+every timed shape (three cases each) go into the line as digests, and
+
+    python3 tools/kernel_times.py --check FILE
+
+exits 1 unless every line of FILE holds the same digests: run it after
+the checkouts' lines to show that parent and change sample alike.
+``--only F`` builds and times kernel F alone.  ``--sweep`` (a checkout
+whose wrapper has launch plans) also takes kernel F's device time under
+every launch plan the card holds in one wave at each shape and over a
+scan of V at B = 64 and 8, the host's time for each part of the
+wrapper, and the SM clock while F runs; the results go into the line
+under "sweep".
 
 Two calls may land on two cards, so compare checkouts inside one call,
 in turns: parent, change, change, parent.
@@ -24,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import subprocess
 import sys
@@ -31,12 +51,22 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import host_ms, time_cuda  # noqa: E402
+from chip_smoke import (_philox_gumbel_ms, device_ops,  # noqa: E402
+                        enqueue_ms, host_ms, time_cuda)
 
 T, S = 4096, 2 ** 14
 SEED = 42
 DROPOUT_SHAPE = (8 * 4096, 3072)
 APP = 2 ** 14
+# kernel F: gemma-7b's vocabulary at the batcher's 64, the reference
+# kernel's batch tile of 256 and a small batch of 8; the five families'
+# vocabularies (olmoe, granite-moe, mamba2, zamba2, whisper) at 64
+F_SHAPES = ((256000, 64), (256000, 256), (256000, 8), (50304, 64),
+            (49155, 64), (50280, 64), (32000, 64), (51865, 64))
+# (ctr, top_k, inv_temp, deco) of the digested cases at each shape; ctr
+# -1 stands for 2**64 - V, a window that ends where the counter wraps
+F_CASES = ((977, 0, 1.0, "splitmix64"), (-1, 50, 1.25, "splitmix64"),
+           (2 ** 32 + 12345, 0, 2.0, "fmix32"))
 
 
 def measure(device) -> dict:
@@ -129,8 +159,23 @@ def measure(device) -> dict:
                            else torch.float32)
         ms[name] = time_cuda(lambda: fn(px.x0, px.ctr, APP, px.h, py.h,
                                         out=part, **kw), reps=10)
-    for B in (64, 256):
-        V = 256000
+    return ms
+
+
+def measure_f(device) -> tuple:
+    """Kernel F at ``F_SHAPES``: ({key: ms}, {shape: digest}, {shape:
+    launch plan}).  Where the checkout's wrapper has launch plans, the
+    CUDA-event ms is also taken under the plan of clusters of at most 8
+    and of at most 16 blocks."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.inference.kernels import gumbel_argmax as ga
+    ms, digests, plans = {}, {}, {}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    card = ga._card(device) if hasattr(ga, "launch_plan") else None
+    for V, B in F_SHAPES:
+        tag = f"F_V{V}_B{B}"
         g = torch.Generator(device=device)
         g.manual_seed(9)
         logits = torch.randn((B, V), generator=g, device=device)
@@ -139,10 +184,141 @@ def measure(device) -> dict:
                            for t in range(B)], device)
         th = torch.full((B,), float("-inf"), device=device)
         tok = torch.empty(B, dtype=torch.int32, device=device)
-        ms[f"F_gumbel_argmax_B{B}"] = time_cuda(lambda: ga.fused_argmax(
-            logits, h, x0, 977, th, inv_temp=1.0, out=tok), reps=50)
+
+        def call():
+            ga.fused_argmax(logits, h, x0, 977, th, inv_temp=1.0, out=tok)
+        ms[tag] = time_cuda(call, reps=50)
+        ms[tag + "_enqueue"] = enqueue_ms(call, reps=50)
+        # each device op of a call runs once in every checkout: the
+        # call's device time is the sum of their times per launch
+        ops = device_ops(call, reps=50)
+        ms[tag + "_device"] = sum(t for t, _ in ops.values())
+        ms[tag + "_device_ops"] = len(ops)
+        ms[tag + "_device_launches_recorded_per_call"] = sum(
+            n for _, n in ops.values())
+        for name, (t, _) in ops.items():
+            ms[f"{tag}_device[{name}]"] = t
+        ms[tag + "_philox"] = _philox_gumbel_ms(logits, gen)
+        if card is not None:
+            # the plan with clusters of at most 8 (portable) and of at most
+            # 16 blocks
+            default = card.plan(B, V)
+            for most in (8, 16):
+                card.plans[B, V] = ga.launch_plan(B, V, {
+                    k: n for k, n in card.max_clusters.items()
+                    if k[1] <= most})
+                ms[f"{tag}_limit{most}"] = time_cuda(call, reps=50)
+                plans[f"{tag}_limit{most}"] = card.plans[B, V][:2]
+            card.plans[B, V] = default
+        sha = hashlib.sha256()
+        for ctr, top_k, inv_temp, deco in F_CASES:
+            ctr = ctr if ctr >= 0 else 2 ** 64 - V
+            thk = (torch.topk(logits, top_k, dim=-1).values[:, -1] if top_k
+                   else th)
+            scores = torch.empty(B, device=device)
+            got = ga.fused_argmax(logits, h, x0, ctr, thk, inv_temp=inv_temp,
+                                  deco=deco, scores_out=scores)
+            sha.update(got.cpu().numpy().tobytes())
+            sha.update(scores.cpu().numpy().tobytes())
+        digests[f"V{V}_B{B}"] = sha.hexdigest()[:16]
         del logits
-    return ms
+    return ms, digests, plans
+
+
+def sweep_f(device) -> dict:
+    """Kernel F's device ms per call (``torch.profiler``) under every
+    one-wave launch plan at ``F_SHAPES`` and over a scan of V under the
+    default plan, the card's resident clusters per (threads, cluster), the
+    host's us per call of each part of the wrapper, and the SM clock while
+    F runs."""
+    import torch
+    from repro_torch.core import engine, lcg
+    from repro_torch.inference.kernels import gumbel_argmax as ga
+    out = {"plans": {}, "scan": {}}
+    x0, h_fam = engine.family_from_seed(9, 0xD0)
+
+    def case(V, B):
+        g = torch.Generator(device=device)
+        g.manual_seed(9)
+        logits = torch.randn((B, V), generator=g, device=device)
+        h = ga.leaf_words([engine.derive_leaf_host(h_fam, t)
+                           for t in range(B)], device)
+        th = torch.full((B,), float("-inf"), device=device)
+        tok = torch.empty(B, dtype=torch.int32, device=device)
+        return (lambda: ga.fused_argmax(logits, h, x0, 977, th, inv_temp=1.0,
+                                        out=tok)), (logits, h, th, tok)
+
+    def dev_ms(call):
+        return sum(t for t, _ in device_ops(call, reps=20).values())
+    card = ga._card(device)
+    out["max_clusters"] = {f"{t}x{c}": n
+                           for (t, c), n in card.max_clusters.items()}
+    for V, B in F_SHAPES:
+        call, _ = case(V, B)
+        default = card.plan(B, V)
+        for (threads, c), n in sorted(card.max_clusters.items()):
+            if n < B or (c - 1) * threads >= V:
+                continue
+            card.plans[B, V] = ga.LaunchPlan(c, threads,
+                                             *lcg.lcg_skip(c * threads))
+            out["plans"][f"V{V}_B{B}_{c}x{threads}"] = dev_ms(call)
+        card.plans[B, V] = default
+        out["plans"][f"V{V}_B{B}_default"] = list(default[:2])
+    for B in (64, 8):
+        for V in (64, 1024, 8192, 32768, 65536, 131072, 256000):
+            call, _ = case(V, B)
+            out["scan"][f"V{V}_B{B}"] = [dev_ms(call),
+                                         list(card.plan(B, V)[:2])]
+    call, (logits, h, th, tok) = case(50304, 64)
+    plan = card.plan(64, 50304)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    aff = card.affine[plan.threads].data_ptr()
+    args = (logits.data_ptr(), logits.stride(0), logits.stride(1), 64, 50304,
+            h.data_ptr(), th.data_ptr(), x0, 977, 1.0, 0, plan.threads,
+            plan.cluster, aff, plan.jump_a, plan.jump_c, tok.data_ptr(), 0,
+            card.index, stream)
+    one = args[:11] + (1024, 1, card.affine[1024].data_ptr()) + \
+        tuple(lcg.lcg_skip(1024)) + args[16:]
+    pack = ga._LAUNCH_ARGS.pack
+    parts = {"wrapper": call,
+             "ga_launch": lambda: card.lib.ga_launch(pack(*args)),
+             "ga_launch_cluster_1": lambda: card.lib.ga_launch(pack(*one)),
+             "pack": lambda: pack(*args),
+             "ctypes_call": lambda: card.lib.ga_error_string(0),
+             "current_stream": lambda: torch.cuda.current_stream(
+                 device).cuda_stream,
+             "current_raw_stream": lambda: ga._current_stream(card.index),
+             "check": lambda: ga._check(logits, h, th),
+             "empty": lambda: torch.empty(64, dtype=torch.int32,
+                                          device=device)}
+    out["host_us"] = {k: enqueue_ms(f, reps=200) * 1e3
+                      for k, f in parts.items()}
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "20"], stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 1.5:
+        for _ in range(100):
+            call()
+        torch.cuda.synchronize()
+    smi.terminate()
+    clocks = [int(x) for x in smi.communicate(timeout=30)[0].split()
+              if x.strip().isdigit()]
+    out["sm_clock_mhz_during_F"] = clocks
+    return out
+
+
+def check(path: str) -> int:
+    """0 if every line of ``path`` holds the same kernel F digests."""
+    lines = [json.loads(x) for x in Path(path).read_text().splitlines()
+             if x.strip()]
+    first = lines[0]["digests"] if lines else None
+    ok = bool(lines) and all(x["digests"] == first for x in lines)
+    labels = ", ".join(x["label"] for x in lines)
+    print(f"kernel_times --check: {len(lines)} lines ({labels}); kernel F "
+          f"tokens and winning scores {'equal' if ok else 'DIFFER'} at "
+          f"{len(first or {})} shapes x {len(F_CASES)} cases")
+    return 0 if ok else 1
 
 
 def main(argv=None) -> int:
@@ -151,7 +327,15 @@ def main(argv=None) -> int:
                                          / "src"))
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default=None, help="append the line here")
+    ap.add_argument("--only", choices=("F",), default=None,
+                    help="build and time kernel F alone")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time kernel F under every one-wave launch plan")
+    ap.add_argument("--check", default=None, metavar="FILE",
+                    help="compare the kernel F digests of FILE's lines")
     args = ap.parse_args(argv)
+    if args.check:
+        return check(args.check)
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
     if not torch.cuda.is_available():
@@ -161,8 +345,21 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    line = json.dumps({"label": args.label, "src": args.src, "card": card,
-                       "ms": measure(torch.device("cuda"))})
+    device = torch.device("cuda")
+    if args.only == "F":
+        from repro_torch.kernels import build
+        t0 = time.perf_counter()
+        build.build_all(["gumbel_argmax"])
+        ms = {"build_s": time.perf_counter() - t0}
+    else:
+        ms = measure(device)
+    f_ms, digests, plans = measure_f(device)
+    ms.update(f_ms)
+    result = {"label": args.label, "src": args.src, "card": card, "ms": ms,
+              "digests": digests, "plans": plans}
+    if args.sweep:
+        result["sweep"] = sweep_f(device)
+    line = json.dumps(result)
     print(line)
     if args.out:
         with open(args.out, "a") as f:
