@@ -42,15 +42,23 @@ unmodified through ``launch.serve`` (kernel A draws every parameter,
 prompt and audio frame, kernel F samples every token), each against the
 CPU at smoke width (an MoE token routed otherwise on the card must be a
 near-tie), decode against forward at 2 layers of full width, a profile of
-olmoe and mamba2 decode steps and the serve CLI on mamba2.  Last the dry
+olmoe and mamba2 decode steps and the serve CLI on mamba2.  Then the
+four configs no earlier path serves: glm4-9b unmodified, qwen1.5-32b,
+granite-34b and qwen2-vl-72b at published width cut in depth
+(``LARGE_LAYERS``), the vlm with a 1152-token prompt over its (64, 1024,
+8192) patches - kernel A at the new draw shapes, kernel F at V = 49152
+and the float8 KV cast against the plain versions and the CPU, each
+against the CPU at smoke width, served through ``launch.serve`` at batch
+64, decode against forward at 2 layers, profiles of qwen1.5-32b and
+qwen2-vl-72b decode steps.  Last the dry
 run: ``python -m repro_torch.launch.dryrun`` over every cell of both
 production meshes (meta tensors), and its RNG fan-out and service burst
 on the card, in subprocesses; ``rng_fanout_cell`` over 256, 512 and 4
 shards of the card (each block equal to one ``generate``);
 ``service_cell`` on the card against the CPU; the dry run's argument
 bytes of every config served or trained above against the peak memory
-the card measured for it, and the depth at which each of the four
-configs never served fits the card.
+the card measured for it, and the depth the dry run predicts for each
+config the large path serves, beside the depth served.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -2356,27 +2364,36 @@ def _draw_against_plain(label: str, s, n: int) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def _param_chunk_draw(cfg, path: str, chunk: int, device) -> None:
+    """Kernel A's draw of chunk ``chunk`` (of 2**28 elements; negative
+    counts from the end) of ``cfg``'s parameter ``path`` at the counter
+    ``common.trunc_normal`` gives it, against the plain version
+    (``_draw_against_plain``)."""
+    from repro_torch.core import stream as tstream
+    from repro_torch.models import registry
+    from repro_torch.models.common import PARAM_CHUNK, flatten, param_stream
+    shape = flatten(registry.build(cfg, "meta").init(SERVE_SEED)[0])[path]
+    n = math.prod(shape.shape)
+    chunks = -(-n // PARAM_CHUNK)
+    lo = (chunk % chunks) * PARAM_CHUNK
+    s = tstream.advance(param_stream(SERVE_SEED, path, device), lo)
+    _draw_against_plain(f"{cfg.name} ({cfg.n_layers} layers) {path} chunk "
+                        f"{chunk} of {chunks} ({n} elements)", s,
+                        min(PARAM_CHUNK, n - lo))
+
+
 def phase_serve_draws(device) -> None:
     """Kernel A at the full-width serve path's shapes against the plain
     version: the chunks of ``SERVE_DRAWS`` at the counters
     ``common.trunc_normal`` gives them, and the prompts' uniforms of
     ``pipeline_for(...).batch_at(0)``.  Runs before the path's counts are
     reset."""
-    import math
     from repro_torch.configs import get_config
     from repro_torch.core import stream as tstream
     from repro_torch.launch.train import pipeline_for
-    from repro_torch.models import registry
-    from repro_torch.models.common import PARAM_CHUNK, flatten, param_stream
     cfg = get_config(SERVE_ARCH)
-    shapes = flatten(registry.build(cfg, "meta").init(SERVE_SEED)[0])
     for path, chunk in SERVE_DRAWS:
-        n = math.prod(shapes[path].shape)
-        lo = (chunk % -(-n // PARAM_CHUNK)) * PARAM_CHUNK
-        m = min(PARAM_CHUNK, n - lo)
-        s = tstream.advance(param_stream(SERVE_SEED, path, device), lo)
-        _draw_against_plain(f"{path} chunk {chunk} of {-(-n // PARAM_CHUNK)}"
-                            f" ({n} elements)", s, m)
+        _param_chunk_draw(cfg, path, chunk, device)
     pipe = pipeline_for(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_SEED,
                         device=device)
     _draw_against_plain(f"prompts ({SERVE_BATCH}, {SERVE_PROMPT + 1})",
@@ -2473,8 +2490,9 @@ def _flips_are_near_ties(cpu, card, rows: int) -> dict:
     return out
 
 
-def _card_against_cpu(arch: str, device, label: str) -> None:
-    """``arch`` at ``launch.train.smoke_config`` width on the card against
+def _card_against_cpu(arch: str, device, label: str, **over) -> None:
+    """``arch`` at ``launch.train.smoke_config`` width (scaled by ``over``,
+    as a vlm's patch prefix must be to fit the prompt) on the card against
     the same code on the CPU (which the CPU tests hold against the
     reference): init within 8 ULP per parameter; prefill and decode
     logits on equal weights within ``SERVE_LOGIT_ATOL``; greedy tokens
@@ -2490,7 +2508,7 @@ def _card_against_cpu(arch: str, device, label: str) -> None:
     from repro_torch.models.common import flatten, unflatten
     t0 = time.perf_counter()
     cpu = torch.device("cpu")
-    cfg = smoke_config(get_config(arch))
+    cfg = smoke_config(get_config(arch)).scaled(**over)
     m_cpu, m_card = registry.build(cfg, cpu), registry.build(cfg, device)
     p_cpu = flatten(m_cpu.init(SERVE_SEED)[0])
     p_card = flatten(m_card.init(SERVE_SEED)[0])
@@ -2524,7 +2542,7 @@ def _card_against_cpu(arch: str, device, label: str) -> None:
     sure = (top2[..., 0] - top2[..., 1]) > 2 * SERVE_LOGIT_ATOL
     agree = torch.argmax(got, -1) == torch.argmax(want, -1)
     log(f"{label} ({cfg.name} at smoke width {cfg.d_model}/{cfg.n_layers} "
-        f"layers/V {cfg.vocab}): init within {worst_ulp} ULP of the CPU "
+        f"layers/V {cfg.vocab}{over or ''}): init within {worst_ulp} ULP of the CPU "
         f"({len(p_cpu) - exact_zero} drawn tensors, {exact_zero} zeros "
         f"exact); prefill + {G - 1} decode logits on equal weights max "
         f"|card - cpu| {err:.6f} (limit {SERVE_LOGIT_ATOL}); greedy tokens "
@@ -2693,22 +2711,24 @@ def _serve_decode_vs_forward(model, params, device) -> None:
             f"from the float32 run is {ratio:.4f}x forward's")
 
 
-def _serve_profile(model, params, device) -> None:
-    """Prefill at (64, 128), then 8 fused decode steps under
-    ``torch.profiler``: the device's busy share over the steps, kernel
-    F's share, device time by kind and the top kernels."""
+def _serve_profile(model, params, device, prompt: int = SERVE_PROMPT) -> None:
+    """Prefill the pipeline's batch at (64, ``prompt``) (with a vlm's
+    patches), then 8 fused decode steps under ``torch.profiler``: the
+    device's busy share over the steps, kernel F's share, device time by
+    kind and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve as srv
     from repro_torch.launch.train import pipeline_for
     cfg = model.cfg
-    prompts = pipeline_for(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_SEED,
-                           device=device).batch_at(0)["tokens"]
-    P, G = SERVE_PROMPT, SERVE_PROFILE_STEPS
-    logits, pcache = model.prefill(params, {"tokens": prompts})
+    prompts = pipeline_for(cfg, SERVE_BATCH, prompt, SERVE_SEED,
+                           device=device).batch_at(0)
+    prompts.pop("labels")
+    P, G = prompt, SERVE_PROFILE_STEPS
+    logits, pcache = model.prefill(params, prompts)
     cache = srv._graft(cfg, model.init_cache(SERVE_BATCH, P + G), pcache, P)
-    del pcache
+    del pcache, prompts
     picker = srv.TokenPicker(seed=SERVE_SEED, batch=SERVE_BATCH,
                              vocab=cfg.vocab, temperature=SERVE_TEMPERATURE,
                              device=device)
@@ -2736,7 +2756,8 @@ def _serve_profile(model, params, device) -> None:
         log("serve profile: not measured (the profiler recorded no device "
             "time)")
         return
-    log(f"serve profile ({cfg.name}, {G} fused decode steps at (B, V) = "
+    log(f"serve profile ({cfg.name}, {cfg.n_layers} layers, {G} fused "
+        f"decode steps at (B, V) = "
         f"({SERVE_BATCH}, {cfg.vocab}), ctx {P + G}): wall "
         f"{wall_us / 1e3:.3f} ms = {wall_us / G / 1e3:.3f} ms/step; device "
         f"busy {busy / 1e3:.3f} ms = {busy / wall_us * 100:.1f} % (idle "
@@ -3380,17 +3401,8 @@ def phase_families_draws(device) -> None:
     from repro_torch.configs import get_config
     from repro_torch.core import stream as tstream
     from repro_torch.launch.train import pipeline_for
-    from repro_torch.models import registry
-    from repro_torch.models.common import PARAM_CHUNK, flatten, param_stream
     for arch, path, chunk in FAMILY_DRAWS:
-        shapes = flatten(registry.build(get_config(arch), "meta")
-                         .init(SERVE_SEED)[0])
-        n = math.prod(shapes[path].shape)
-        lo = (chunk % -(-n // PARAM_CHUNK)) * PARAM_CHUNK
-        m = min(PARAM_CHUNK, n - lo)
-        s = tstream.advance(param_stream(SERVE_SEED, path, device), lo)
-        _draw_against_plain(f"{arch} {path} chunk {chunk} of "
-                            f"{-(-n // PARAM_CHUNK)} ({n} elements)", s, m)
+        _param_chunk_draw(get_config(arch), path, chunk, device)
     cfg = get_config("whisper_small")
     pipe = pipeline_for(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_SEED,
                         device=device)
@@ -3400,92 +3412,155 @@ def phase_families_draws(device) -> None:
                         SERVE_BATCH * cfg.enc_ctx * cfg.d_model)
 
 
-def phase_families_sampler(device) -> None:
-    """Kernel F against its plain version at each config's vocabulary and
-    batch 64 (every (inv_temp, top_k) option, both decorrelators,
-    counters below and past 2**32 and a window ending where the counter
-    wraps; the odd
-    vocabularies end in a ragged V tile), then its time there (CUDA
-    events; its device time and launches per call under the profiler)
-    beside its bound and torch's Philox Gumbel-max on the same logits."""
+def _sampler_against_plain(arch: str, V: int, device, gen) -> float:
+    """Kernel F against its plain version at (V, 64) (every (inv_temp,
+    top_k) option, both decorrelators, counters below and past 2**32 and a
+    window ending where the counter wraps; an odd vocabulary ends in a
+    ragged V tile), then its time there (CUDA events; its device time and
+    launches per call under the profiler) beside its bound and torch's
+    Philox Gumbel-max on the same logits.  Returns the CUDA-event ms."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.inference.kernels import gumbel_argmax as ga
     B = SERVE_BATCH
+    logits, h, x0 = _ga_case(V, B, device)
+    for inv_temp, top_k in INF_OPTIONS:
+        th = (torch.topk(logits, top_k, dim=-1).values[:, -1] if top_k
+              else torch.full((B,), float("-inf"), device=device))
+        for deco in ("splitmix64", "fmix32"):
+            for ctr in (977, 2 ** 32 + 12345, 2 ** 64 - V):
+                _ga_check(f"{arch} (V, B) = ({V}, {B}) inv_temp "
+                          f"{inv_temp} top_k {top_k} {deco} ctr {ctr}",
+                          logits, h, x0, ctr, th, inv_temp, deco)
+    th = torch.full((B,), float("-inf"), device=device)
+    out = torch.empty(B, dtype=torch.int32, device=device)
+
+    def call():
+        ga.fused_argmax(logits, h, x0, 977, th, inv_temp=1.0, out=out)
+    ms = time_cuda(call, reps=50)
+    prof = _ga_device(call)
+    b_ms, b_by, _, _ = _ga_bound(V, B)
+    old_ms = _ga_bound(V, B, GA_OPS_PER_ELEMENT_ATOMIC)[0]
+    lib_ms = _philox_gumbel_ms(logits, gen)
+    log(f"kernel F at {arch}'s (V, B) = ({V}, {B}): equal to the plain "
+        f"version ({len(INF_OPTIONS)} options x 2 decorrelators x 3 "
+        f"counters); {ms:.4f} "
+        f"ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / ms * 100:.1f}% of "
+        f"the bound's speed; the earlier design's count: "
+        f"{old_ms:.4f} ms, {old_ms / ms * 100:.1f}%); {prof}; torch "
+        f"Philox gumbel-max {lib_ms:.4f} ms ({card_line()})")
+    return ms
+
+
+def phase_families_sampler(device) -> None:
+    """``_sampler_against_plain`` at each family config's vocabulary."""
+    import torch
+    from repro_torch.configs import get_config
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     for arch in FAMILY_ARCHS:
-        V = get_config(arch).vocab
-        logits, h, x0 = _ga_case(V, B, device)
-        for inv_temp, top_k in INF_OPTIONS:
-            th = (torch.topk(logits, top_k, dim=-1).values[:, -1] if top_k
-                  else torch.full((B,), float("-inf"), device=device))
-            for deco in ("splitmix64", "fmix32"):
-                for ctr in (977, 2 ** 32 + 12345, 2 ** 64 - V):
-                    _ga_check(f"{arch} (V, B) = ({V}, {B}) inv_temp "
-                              f"{inv_temp} top_k {top_k} {deco} ctr {ctr}",
-                              logits, h, x0, ctr, th, inv_temp, deco)
-        th = torch.full((B,), float("-inf"), device=device)
-        out = torch.empty(B, dtype=torch.int32, device=device)
+        _sampler_against_plain(arch, get_config(arch).vocab, device, gen)
 
-        def call():
-            ga.fused_argmax(logits, h, x0, 977, th, inv_temp=1.0, out=out)
-        ms = time_cuda(call, reps=50)
-        prof = _ga_device(call)
-        b_ms, b_by, _, _ = _ga_bound(V, B)
-        old_ms = _ga_bound(V, B, GA_OPS_PER_ELEMENT_ATOMIC)[0]
-        lib_ms = _philox_gumbel_ms(logits, gen)
-        log(f"kernel F at {arch}'s (V, B) = ({V}, {B}): equal to the plain "
-            f"version ({len(INF_OPTIONS)} options x 2 decorrelators x 3 "
-            f"counters); {ms:.4f} "
-            f"ms, bound {b_ms:.4f} ms by {b_by} ({b_ms / ms * 100:.1f}% of "
-            f"the bound's speed; the earlier design's count: "
-            f"{old_ms:.4f} ms, {old_ms / ms * 100:.1f}%); {prof}; torch "
-            f"Philox gumbel-max {lib_ms:.4f} ms ({card_line()})")
-        del logits
+
+class _KvStored:
+    """While active, ``layers.attention`` attends to K and V as a KV cache
+    of ``dtype`` stores them (``layers.cast`` to ``dtype`` and back), the
+    values decode reads back from such a cache."""
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self._real = real = L.attention
+        dtype = self.dtype
+
+        def stored(q, k, v, **kw):
+            return real(q, L.cast(k, dtype).to(k.dtype),
+                        L.cast(v, dtype).to(v.dtype), **kw)
+        L.attention = stored
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        L.attention = self._real
+
+
+def _decode_vs_forward_logits(cut, params, device):
+    """(decode logits, forward's at the same positions, MoE (token,
+    choice) pairs dropped in either, the prefix P0) of ``cut`` on
+    ``FAMILY_ROWS`` x 16 positions.  Forward attends to K and V as the
+    cache stores them (``_KvStored``; with a bf16 cache they are
+    unchanged).  Decode takes no patches, so a vlm first prefills its
+    patch prefix and ``VLM_TEXT`` text positions, grafts that cache and
+    decodes the 16 positions after it; forward runs over the whole
+    sequence with the same patches."""
+    import torch
+    from repro_torch.launch import serve as srv
+    from repro_torch.launch.train import pipeline_for
+    from repro_torch.models import registry
+    model = registry.build(cut, device)
+    R, S = FAMILY_ROWS, SERVE_POSITIONS
+    P0 = cut.vision_prefix + VLM_TEXT if cut.family == "vlm" else 0
+    batch = pipeline_for(cut, R, P0 + S, SERVE_SEED,
+                         device=device).batch_at(0)
+    batch.pop("labels")
+    toks = batch["tokens"]
+    with _MoeRoutes() as drops:
+        with _KvStored(registry._kv_dt(cut)):
+            full, _ = model.forward(params, batch)
+        full = full[:, P0:].clone()
+        fwd = drops.take()
+        cache = model.init_cache(R, P0 + S)
+        if cut.family == "encdec":     # cross K/V from a 1-token prefill
+            pc = model.prefill(params, dict(batch, tokens=toks[:, :1]))[1]
+            cache = cache[:2] + pc[2:]
+            drops.take()
+        if P0:                         # the patch prefix and text after it
+            pc = model.prefill(params, dict(batch, tokens=toks[:, :P0]))[1]
+            cache = srv._graft(cut, cache, pc, P0)
+            del pc
+        dec = []
+        for pos in range(P0, P0 + S):
+            lg, cache = model.decode(params, cache, toks[:, pos:pos + 1], pos)
+            dec.append(lg)
+        steps = drops.take()
+    require(P0 >= cut.vision_prefix, f"{cut.name}: a decode position lies "
+            f"inside the patch prefix")
+    pairs = sum(int(c[1].sum()) for c in fwd + steps)
+    return torch.stack(dec, 1), full, pairs, P0
 
 
 def _family_decode_vs_forward(cfg, device) -> None:
-    """Decode logits against forward's on ``FAMILY_ROWS`` x 16 positions
-    at the published width, cut to 2 layers (zamba2: its first group of
+    """Decode logits against forward's (``_decode_vs_forward_logits``) at
+    the published width, cut to 2 layers (zamba2: its first group of
     ``attn_every`` mamba layers with the shared block, and one trailing
     layer; an MoE config with its capacity factor raised to E / k, so
     that no choice drops): within the reference's slack (atol 0.15, rtol
-    0.05) at every position."""
+    0.05) at every position.  A float8 cache rounds K and V to 3 mantissa
+    bits, which leaves that slack around a forward over unrounded K and V
+    (the reference's own decode test leaves its float8 config out,
+    tests/test_models.py::test_decode_matches_forward); forward attends to
+    K and V as the cache stores them, so the float8 decode is held too."""
     import torch
-    from repro_torch.launch.train import pipeline_for
     from repro_torch.models import registry
     t0 = time.perf_counter()
     depth = cfg.attn_every + 1 if cfg.family == "hybrid" else 2
     cut = cfg.scaled(n_layers=depth, enc_layers=min(cfg.enc_layers, 2))
     if cfg.family == "moe":
         cut = cut.scaled(capacity_factor=cfg.n_experts / cfg.top_k)
-    model = registry.build(cut, device)
-    params, _ = model.init(SERVE_SEED)
-    R, S = FAMILY_ROWS, SERVE_POSITIONS
-    batch = pipeline_for(cut, R, S, SERVE_SEED, device=device).batch_at(0)
-    batch.pop("labels")
-    toks = batch["tokens"]
-    with _MoeRoutes() as drops:
-        full, _ = model.forward(params, batch)
-        fwd = drops.take()
-        cache = model.init_cache(R, S)
-        if cut.family == "encdec":     # cross K/V from a 1-token prefill
-            pc = model.prefill(params, dict(batch, tokens=toks[:, :1]))[1]
-            cache = cache[:2] + pc[2:]
-            drops.take()
-        dec = []
-        for pos in range(S):
-            lg, cache = model.decode(params, cache, toks[:, pos:pos + 1], pos)
-            dec.append(lg)
-        steps = drops.take()
-    dec = torch.stack(dec, 1)
-    pairs = sum(int(c[1].sum()) for c in fwd + steps)
+    params, _ = registry.build(cut, device).init(SERVE_SEED)
+    dec, full, pairs, P0 = _decode_vs_forward_logits(cut, params, device)
     excess = _excess(dec, full)
     finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
+    notes = "".join(
+        (f", capacity factor {cut.capacity_factor:g}" if cut.n_experts
+         else "", f", KV cache {cut.kv_dtype} (forward's K and V rounded "
+         f"alike)" if cut.kv_dtype != "bf16" else "",
+         f", {FAMILY_ROWS} rows x {SERVE_POSITIONS} positions",
+         f" after a {P0}-token prefill over {cut.vision_prefix} patches"
+         if P0 else ""))
     log(f"  decode vs forward ({cfg.name}, {depth} layers at full width"
-        f"{', capacity factor %g' % cut.capacity_factor if cut.n_experts else ''}"
-        f", {R} rows x {S} positions, logits up to "
+        f"{notes}, logits up to "
         f"{float(full.abs().max()):.3f}): dropped (token, choice) pairs "
         f"{pairs}; max |decode - forward| {float((dec - full).abs().max()):.5f}"
         f", excess over the slack {excess:.5f} (limit {SERVE_SLACK_ATOL}); "
@@ -3496,7 +3571,6 @@ def _family_decode_vs_forward(cfg, device) -> None:
             f"against forward")
     require(excess <= SERVE_SLACK_ATOL, f"{cfg.name}: decode logits leave "
             f"the reference's slack around forward's")
-    del model, params, cache
 
 
 def phase_families_serve(device, measured: dict) -> dict:
@@ -3615,6 +3689,247 @@ def phase_families_path(device, measured: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the large path: the four published configs no path above serves
+# (glm4-9b, qwen1.5-32b, granite-34b, qwen2-vl-72b) at their published
+# widths through kernels A and F
+# ---------------------------------------------------------------------------
+
+LARGE_ARCHS = ("glm4_9b", "qwen15_32b", "granite_34b", "qwen2_vl_72b")
+# Served at published width with float32 parameters at batch 64; glm4-9b
+# unmodified (40 of 40 layers), the other three cut in depth only, as
+# TRAIN_LAYERS cuts gemma-7b.  Each starts from the dry run's fit at the
+# shape served (28, 43 and 15 layers) and goes lower only as far as the
+# card's peak forces.  Peaks allocated of the 16-token serve alone on an
+# H100 80GB HBM3 at 700 W (tools/families_path.py --path large):
+# qwen1.5-32b 70.81 GiB, granite-34b 69.25 GiB, of the card's 79.18.
+# qwen2-vl-72b's 73,728-token prefill holds ~25 GiB beside its arguments
+# (peak - prediction 24.89 GiB; 6.75 GiB float32 attention logits per
+# 384-row query chunk at 64 heads): 9 layers peak at 67.16 GiB, and 10
+# and 11 ran out of memory
+QWEN15_LAYERS = 28      # of 64
+GRANITE_LAYERS = 43     # of 88
+QWEN2_VL_LAYERS = 9     # of 80
+LARGE_LAYERS = {"qwen15_32b": QWEN15_LAYERS, "granite_34b": GRANITE_LAYERS,
+                "qwen2_vl_72b": QWEN2_VL_LAYERS}
+LARGE_GEN = 16
+LARGE_TWOPASS_ARCH = "qwen2_vl_72b"
+LARGE_PROFILE_ARCHS = ("qwen15_32b", "qwen2_vl_72b")
+# smoke width keeps the vlm's 1024-position patch prefix, longer than the
+# card-against-CPU prompt of 32 tokens: scale it down in both devices
+LARGE_SMOKE = {"qwen2_vl_72b": dict(vision_prefix=8)}
+# decode against forward: text positions a vlm prefills after its prefix
+VLM_TEXT = 4
+
+
+def _large_cfg(arch: str):
+    """``arch``'s published config, cut in depth to ``LARGE_LAYERS``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.scaled(n_layers=LARGE_LAYERS[arch]) if arch in LARGE_LAYERS \
+        else cfg
+
+
+def _large_prompt(cfg) -> int:
+    """The served prompt: 128 text tokens after a vlm's patch prefix (a
+    vlm refuses a prompt shorter than its prefix)."""
+    return cfg.vision_prefix + SERVE_PROMPT
+
+
+def phase_large_draws(device) -> None:
+    """Kernel A against its plain version, bit for bit, at the path's new
+    draw shapes: the first and the last 2**28 chunk of the largest stacked
+    matrix of the four configs at their served depths, and the uniforms
+    under qwen2-vl-72b's (64, 1024, 8192) patches of
+    ``pipeline_for(...).batch_at(0)``."""
+    from repro_torch.core import stream as tstream
+    from repro_torch.launch.train import pipeline_for
+    from repro_torch.models import registry
+    from repro_torch.models.common import flatten
+    sizes = []
+    for arch in LARGE_ARCHS:
+        shapes = flatten(registry.build(_large_cfg(arch), "meta")
+                         .init(SERVE_SEED)[0])
+        sizes += [(t.numel(), arch, path) for path, t in shapes.items()
+                  if path.startswith("layers/")]
+    _, arch, path = max(sizes)
+    for chunk in (0, -1):
+        _param_chunk_draw(_large_cfg(arch), path, chunk, device)
+    cfg = _large_cfg("qwen2_vl_72b")
+    pipe = pipeline_for(cfg, SERVE_BATCH, _large_prompt(cfg), SERVE_SEED,
+                        device=device)
+    est = tstream.derive(tstream.derive(pipe._root, 0), 0xE57A)
+    _draw_against_plain(f"{cfg.name} patches ({SERVE_BATCH}, "
+                        f"{cfg.vision_prefix}, {cfg.d_model})", est,
+                        SERVE_BATCH * cfg.vision_prefix * cfg.d_model)
+
+
+def phase_large_sampler(device) -> dict:
+    """``_sampler_against_plain`` at each vocabulary of the four configs
+    (granite-34b's 49152 is new to kernel F).  Returns {vocab: CUDA-event
+    ms a call at (V, 64)}."""
+    import torch
+    from repro_torch.configs import get_config
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    ms = {}
+    for arch in LARGE_ARCHS:
+        V = get_config(arch).vocab
+        if V not in ms:
+            ms[V] = _sampler_against_plain(arch, V, device, gen)
+    return ms
+
+
+def phase_large_f8_cast(device) -> None:
+    """``layers.cast(x, float8_e4m3fn)``, which writes qwen1.5-32b's KV
+    cache every step, on the card against the CPU over all 65,536 bf16
+    bit patterns: NaN at the same positions, every other byte equal."""
+    import torch
+    from repro_torch.models import layers as L
+    x = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    want = L.cast(x, torch.float8_e4m3fn)
+    got = L.cast(x.to(device), torch.float8_e4m3fn).cpu()
+    nan = torch.isnan(want.to(torch.float32))
+    same_nan = torch.equal(torch.isnan(got.to(torch.float32)), nan)
+    bytes_equal = torch.equal(got.view(torch.uint8)[~nan],
+                              want.view(torch.uint8)[~nan])
+    log(f"float8 cast on the card: {x.numel()} bf16 patterns, NaN at the "
+        f"CPU's {int(nan.sum())} positions {same_nan}, the other bytes "
+        f"equal {bytes_equal}")
+    require(same_nan and bytes_equal, "the float8 cast on the card differs "
+            "from the CPU's")
+
+
+def phase_large_serve(device, measured: dict, f_ms: dict) -> dict:
+    """Each of ``LARGE_ARCHS`` at its served depth through
+    ``launch.serve.serve`` at batch 64, its prompt (``_large_prompt``),
+    16 tokens, temperature 0.8 on the fused path, twice (equal tokens;
+    qwen2-vl-72b also two-pass - the same tokens - and greedy), with
+    kernel A and F's counts set to 0 just before and read just after;
+    then decode against forward at 2 layers of each published width.
+    Each run's peak memory goes into ``measured[(arch, "serve")]``, beside
+    the dry run's argument bytes at the same shape."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.inference.kernels import gumbel_argmax as ga
+    from repro_torch.kernels import thundering_block as tb
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import registry
+    from repro_torch.models.common import flatten
+    gib = 2 ** 30
+    total = torch.cuda.get_device_properties(device).total_memory
+    tb.reset_counts()
+    ga.reset_counts()
+    for arch in LARGE_ARCHS:
+        cfg = _large_cfg(arch)
+        P = _large_prompt(cfg)
+        shapes = flatten(registry.build(cfg, "meta").init(0)[0])
+        n_params = sum(v.numel() for v in shapes.values())
+        pred = _served_bytes(arch, SERVE_BATCH, P, P + LARGE_GEN,
+                             LARGE_LAYERS.get(arch, 0))["total"]
+        _free_card()
+        free = torch.cuda.mem_get_info(device)[0]
+        prefix = (f" ({cfg.vision_prefix} patch positions + {SERVE_PROMPT} "
+                  f"text)" if cfg.vision_prefix else "")
+        log(f"large: {cfg.name} [{cfg.family}] {cfg.n_layers} of "
+            f"{get_config(arch).n_layers} layers at published width "
+            f"(d_model {cfg.d_model}, {cfg.n_heads} heads x "
+            f"{cfg.resolved_head_dim}, {cfg.n_kv_heads} kv heads, d_ff "
+            f"{cfg.d_ff}, {cfg.act}, vocab {cfg.vocab}, KV cache "
+            f"{cfg.kv_dtype}): {n_params} parameters, "
+            f"{n_params * 4 / 1e9:.1f} GB in float32; batch {SERVE_BATCH}, "
+            f"prompt {P}{prefix}, {LARGE_GEN} tokens; the dry run's argument bytes "
+            f"{pred / gib:.3f} GiB; the card's free memory "
+            f"{free / gib:.2f} of {total / gib:.2f} GiB")
+        runs = [("fused", SERVE_TEMPERATURE, "fused"),
+                ("fused again", SERVE_TEMPERATURE, "fused")]
+        if arch == LARGE_TWOPASS_ARCH:
+            runs += [("two-pass", SERVE_TEMPERATURE, "cuda"),
+                     ("greedy", 0.0, "fused")]
+        toks_of = {}
+        for label, temp, path in runs:
+            _free_card()
+            torch.cuda.reset_peak_memory_stats(device)
+            a0, f0 = tb.thundering_ctr.launches, ga.fused_argmax.launches
+            toks, stats = srv.serve(cfg, batch=SERVE_BATCH, prompt_len=P,
+                                    gen=LARGE_GEN, seed=SERVE_SEED,
+                                    temperature=temp, sampler_path=path,
+                                    device=device)
+            peak = torch.cuda.max_memory_allocated(device)
+            measured.setdefault((arch, "serve"), []).append(peak)
+            toks_of[label] = toks
+            _serve_report(f"{arch} {cfg.n_layers} layers {label}", toks,
+                          stats, peak)
+            log(f"  {arch} {label}: peak - prediction "
+                f"{(peak - pred) / gib:.3f} GiB; peak reserved "
+                f"{torch.cuda.max_memory_reserved(device) / gib:.2f} GiB; "
+                f"kernel F "
+                f"{f_ms[cfg.vocab]:.4f} ms a call = "
+                f"{f_ms[cfg.vocab] / stats['step_p50_ms'] * 100:.3f} % of "
+                f"the p50 step")
+            require(toks.shape == (SERVE_BATCH, LARGE_GEN)
+                    and toks.dtype == np.int32 and toks.min() >= 0
+                    and toks.max() < cfg.vocab, f"{arch} {label}: tokens "
+                    f"{toks.shape} {toks.dtype} outside [0, {cfg.vocab})")
+            require(peak < total, f"{arch} {label}: peak {peak} >= {total}")
+            a_launches = tb.thundering_ctr.launches - a0
+            f_launches = ga.fused_argmax.launches - f0
+            want_f = LARGE_GEN if temp > 0 and path == "fused" else 0
+            require(a_launches > 0, f"{arch} {label}: kernel A never "
+                                    f"launched")
+            require(f_launches == want_f, f"{arch} {label}: kernel F "
+                    f"launched {f_launches} times, not {want_f}")
+        require(np.array_equal(toks_of["fused"], toks_of["fused again"]),
+                f"{arch}: two in-process runs gave different tokens")
+        if "two-pass" in toks_of:
+            require(np.array_equal(toks_of["fused"], toks_of["two-pass"]),
+                    f"{arch}: the fused and two-pass samplers differ")
+            log(f"  {arch}: fused = two-pass tokens; greedy = fused at "
+                f"{int((toks_of['greedy'] == toks_of['fused']).sum())} of "
+                f"{toks_of['greedy'].size}")
+    launches = {"thundering_ctr": tb.thundering_ctr.launches,
+                "gumbel_argmax": ga.fused_argmax.launches}
+    plain_runs = (ga.fused_argmax_plain.cuda_runs
+                  + tb.thundering_ctr_plain.cuda_runs
+                  + tb.thundering_faithful_plain.cuda_runs)
+    log(f"large path: launches {launches}; plain versions run on the "
+        f"card: {plain_runs}")
+    require(launches["thundering_ctr"] > 0 and launches["gumbel_argmax"] > 0,
+            "kernel A or F never launched on the large path")
+    require(plain_runs == 0, "a plain version ran on a CUDA tensor")
+    for arch in LARGE_ARCHS:
+        _free_card()
+        _family_decode_vs_forward(get_config(arch), device)
+    return launches
+
+
+def phase_large_path(device, measured: dict) -> dict:
+    """glm4-9b, qwen1.5-32b, granite-34b and qwen2-vl-72b: (a) kernel A at
+    the path's draw shapes, kernel F at their vocabularies and the float8
+    KV cast against the plain versions / the CPU; (b) each config at
+    smoke width on the card against the CPU; (c) each served at published
+    width (``LARGE_LAYERS`` deep), decode against forward at 2 layers;
+    (d) a profile of 8 decode steps of qwen1.5-32b and qwen2-vl-72b."""
+    from repro_torch.models import registry
+    phase_large_draws(device)
+    f_ms = phase_large_sampler(device)
+    phase_large_f8_cast(device)
+    for arch in LARGE_ARCHS:
+        _card_against_cpu(arch, device, "large plain check",
+                          **LARGE_SMOKE.get(arch, {}))
+    launches = phase_large_serve(device, measured, f_ms)
+    for arch in LARGE_PROFILE_ARCHS:
+        _free_card()
+        cfg = _large_cfg(arch)
+        model = registry.build(cfg, device)
+        params, _ = model.init(SERVE_SEED)
+        _serve_profile(model, params, device, _large_prompt(cfg))
+        del model, params
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the dryrun path: the dry run's CLI, the RNG fan-out and the service cell
 # on the card, and the dry run's argument bytes against the card's peaks
 # ---------------------------------------------------------------------------
@@ -3623,9 +3938,6 @@ DRYRUN_DIR = ROOT / "build" / "chip_smoke" / "dryrun"
 DRYRUN_CLI = (("cells", ("--all", "--both-meshes")),
               ("rng-fanout", ("--rng-fanout", "--both-meshes")),
               ("service", ("--service",)))
-# the configs the card has not served: their argument bytes at the
-# serving width of chip_smoke (batch 64, prompt 128 + 32 tokens)
-DRYRUN_UNSERVED = ("glm4_9b", "qwen15_32b", "granite_34b", "qwen2_vl_72b")
 DRYRUN_CTX = SERVE_PROMPT + SERVE_GEN
 FAMILY_CTX = SERVE_PROMPT + FAMILY_GEN
 
@@ -3803,14 +4115,25 @@ def _served_bytes(arch: str, batch: int, prompt: int, ctx: int,
     return dryrun.argument_bytes(model, specs, one, "decode")
 
 
+def _served_shape(arch: str):
+    """(prompt, context, layers - 0 for all) at which the paths above
+    serve ``arch``."""
+    if arch == SERVE_ARCH:
+        return SERVE_PROMPT, DRYRUN_CTX, 0
+    if arch in LARGE_ARCHS:
+        P = _large_prompt(_large_cfg(arch))
+        return P, P + LARGE_GEN, LARGE_LAYERS.get(arch, 0)
+    return SERVE_PROMPT, FAMILY_CTX, 0
+
+
 def phase_dryrun_memory(device, measured: dict) -> None:
     """The dry run against the card: the argument bytes of each config at
-    the shape and dtypes this run served or trained it with must not
-    exceed the ``max_memory_allocated`` peak measured for it (a lower
-    bound above the card's own count is wrong).  Then, for the configs
-    never served, the argument bytes at batch 64, context 160, and the
-    most layers whose bytes fit the card's memory less the largest
-    measured peak-minus-prediction."""
+    the shape, depth and dtypes this run served or trained it with must
+    not exceed the ``max_memory_allocated`` peak measured for it (a lower
+    bound above the card's own count is wrong).  Then the fit the dry run
+    predicts for each config the large path serves, at the shape served:
+    the most layers whose bytes fit the card's memory less the largest
+    peak-minus-prediction of the other paths, beside the layers served."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
@@ -3830,11 +4153,14 @@ def phase_dryrun_memory(device, measured: dict) -> None:
             shape = (f"{cfg.n_layers} layers, batch {TRAIN_BATCH} x "
                      f"{TRAIN_SEQ}, float32 params + m + v")
         else:
-            ctx = DRYRUN_CTX if arch == SERVE_ARCH else FAMILY_CTX
-            pred = _served_bytes(arch, SERVE_BATCH, SERVE_PROMPT, ctx)
-            shape = f"batch {SERVE_BATCH}, context {ctx}, float32 params"
+            prompt, ctx, layers = _served_shape(arch)
+            pred = _served_bytes(arch, SERVE_BATCH, prompt, ctx, layers)
+            shape = (f"{layers or get_config(arch).n_layers} layers, batch "
+                     f"{SERVE_BATCH}, prompt {prompt}, context {ctx}, "
+                     f"float32 params")
         low = min(peaks)
-        margin = max(margin, max(peaks) - pred["total"])
+        if arch not in LARGE_ARCHS:
+            margin = max(margin, max(peaks) - pred["total"])
         log(f"dry run vs card: {arch} {kind} ({shape}): argument bytes "
             f"{pred['total'] / gib:.3f} GiB (params {pred['params'] / gib:.3f}"
             f", optimizer {pred['opt_state'] / gib:.3f}, cache "
@@ -3843,27 +4169,33 @@ def phase_dryrun_memory(device, measured: dict) -> None:
             f"ratio {pred['total'] / low:.4f}")
         require(pred["total"] <= low, f"dry run: {arch} {kind} predicts "
                 f"{pred['total']} B, more than the card's peak {low} B")
-    require(len(measured) == 1 + 1 + len(FAMILY_ARCHS), "dry run: the "
-            f"card's peaks were not all measured ({sorted(measured)})")
+    require(len(measured) == 1 + 1 + len(FAMILY_ARCHS) + len(LARGE_ARCHS),
+            f"dry run: the card's peaks were not all measured "
+            f"({sorted(measured)})")
     total = torch.cuda.mem_get_info(device)[1]
     budget = total - margin
     log(f"dry run: card memory {total / gib:.2f} GiB, largest measured "
-        f"peak - prediction {margin / gib:.2f} GiB, budget "
-        f"{budget / gib:.2f} GiB ({card_line()})")
-    for arch in DRYRUN_UNSERVED:
+        f"peak - prediction of the serve, train and families paths "
+        f"{margin / gib:.2f} GiB, budget {budget / gib:.2f} GiB "
+        f"({card_line()})")
+    for arch in LARGE_ARCHS:
         cfg = get_config(arch)
-        full = _served_bytes(arch, SERVE_BATCH, SERVE_PROMPT, DRYRUN_CTX)
-        b1, b2 = (_served_bytes(arch, SERVE_BATCH, SERVE_PROMPT, DRYRUN_CTX,
+        prompt, ctx, layers = _served_shape(arch)
+        full = _served_bytes(arch, SERVE_BATCH, prompt, ctx)
+        b1, b2 = (_served_bytes(arch, SERVE_BATCH, prompt, ctx,
                                 layers=n)["total"] for n in (1, 2))
         per = b2 - b1
         require(b1 + (cfg.n_layers - 1) * per == full["total"],
                 f"dry run: {arch}'s bytes are not linear in its layers")
         fit = min(cfg.n_layers, max(0, (budget - b1) // per + 1))
-        log(f"dry run: {arch} unserved, batch {SERVE_BATCH}, context "
-            f"{DRYRUN_CTX}, float32 params: {full['total'] / gib:.2f} GiB "
+        peak = max(measured[(arch, "serve")])
+        log(f"dry run: {arch} at batch {SERVE_BATCH}, prompt {prompt}, "
+            f"context {ctx}, float32 params: {full['total'] / gib:.2f} GiB "
             f"at {cfg.n_layers} layers (params {full['params'] / gib:.2f}, "
-            f"cache {full['cache'] / gib:.2f}); {per / gib:.4f} GiB a layer;"
-            f" fits the card at {fit} of {cfg.n_layers} layers")
+            f"cache {full['cache'] / gib:.2f}); {b1 / gib:.3f} GiB at one "
+            f"layer, {per / gib:.4f} GiB each further layer; the budget "
+            f"predicts {fit} of {cfg.n_layers} layers; served at "
+            f"{layers or cfg.n_layers}, measured peak {peak / gib:.2f} GiB")
 
 
 def phase_dryrun_path(device, measured: dict) -> dict:
@@ -3965,6 +4297,8 @@ def main() -> int:
                                      measured)
         by_path["families"] = run_phase("families path", phase_families_path,
                                         device, measured)
+        by_path["large"] = run_phase("large path", phase_large_path, device,
+                                     measured)
         by_path["dryrun"] = run_phase("dryrun path", phase_dryrun_path,
                                       device, measured)
     except SmokeFailure as e:

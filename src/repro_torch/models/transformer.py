@@ -234,9 +234,14 @@ def _layer(params_layers: Dict[str, torch.Tensor], li: int):
 def _embed_inputs(cfg, params, tokens, patches):
     h = L.embed(tokens, params["embed"])
     if cfg.family == "vlm" and patches is not None:
-        # pad+add, as the reference (which keeps the sequence sharding)
-        P = patches.shape[1]
-        h = h + F.pad(patches.to(h.dtype), (0, 0, 0, h.shape[1] - P))
+        # pad+add, as the reference (which keeps the sequence sharding).
+        # A negative pad would crop the patches; the reference's pad
+        # refuses that, so refuse it too
+        S, P = h.shape[1], patches.shape[1]
+        if S < P:
+            raise ValueError(f"a vlm sequence of {S} tokens is shorter than "
+                             f"its patch prefix of {P}")
+        h = h + F.pad(patches.to(h.dtype), (0, 0, 0, S - P))
     return shd.activation_hint(h)
 
 

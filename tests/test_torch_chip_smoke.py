@@ -6,9 +6,14 @@ such token to a near-tie: its top-k gap on the CPU within twice the
 largest router-probability difference of the call.  A flip across a wide
 gap is a routing fault even when it moves one row of eight, which the
 half-of-the-rows floor alone lets pass.
+
+Its decode-against-forward check holds a float8 KV cache's decode against
+a forward that attends to K and V rounded as the cache stores them
+(``_KvStored``), here on qwen1.5-32b at smoke width.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 from pathlib import Path
 
@@ -86,3 +91,39 @@ def test_router_probabilities_past_the_limit_fail(cs):
     card[0] = (experts, dropped, gs, probs)
     with pytest.raises(cs.SmokeFailure, match="router probabilities"):
         cs._flips_are_near_ties(cpu, card, ROWS)
+
+
+@pytest.fixture(scope="module")
+def f8_cut():
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import smoke_config
+    from repro_torch.models import registry
+    cut = smoke_config(get_config("qwen15_32b"))
+    assert cut.kv_dtype == "f8"
+    params, _ = registry.build(cut, torch.device("cpu")).init(0)
+    return cut, params
+
+
+def test_float8_decode_is_held_to_the_kv_rounded_forward(cs, f8_cut,
+                                                        monkeypatch):
+    cut, params = f8_cut
+    cpu = torch.device("cpu")
+    dec, full, pairs, _ = cs._decode_vs_forward_logits(cut, params, cpu)
+    assert pairs == 0 and bool(torch.isfinite(dec).all())
+    assert cs._excess(dec, full) <= cs.SERVE_SLACK_ATOL
+    # a forward over unrounded K and V lies farther from the float8 decode
+    monkeypatch.setattr(cs, "_KvStored", lambda dtype: contextlib.nullcontext())
+    _, plain, _, _ = cs._decode_vs_forward_logits(cut, params, cpu)
+    assert cs._rms(dec, plain) > 10 * cs._rms(dec, full)
+
+
+def test_a_wrong_head_mapping_in_the_float8_read_back_fails(cs, f8_cut,
+                                                            monkeypatch):
+    from repro_torch.models import layers as L
+    cut, params = f8_cut
+    real = L.decode_attention
+    monkeypatch.setattr(L, "decode_attention", lambda q, k, v, pos: real(
+        q, k.to(q.dtype).flip(2), v.to(q.dtype).flip(2), pos))
+    dec, full, _, _ = cs._decode_vs_forward_logits(
+        cut, params, torch.device("cpu"))
+    assert cs._excess(dec, full) > cs.SERVE_SLACK_ATOL

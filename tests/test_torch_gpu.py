@@ -619,16 +619,22 @@ def _ordered_f32(t):
     return torch.where(i < 0, -(2 ** 31) - i, i)
 
 
-@pytest.mark.parametrize("arch", ["gemma_7b", "qwen15_32b"])
+@pytest.mark.parametrize("arch", ["gemma_7b", "qwen15_32b", "granite_34b",
+                                  "qwen2_vl_72b"])
 def test_serve_smoke_width_card_matches_cpu(cuda, arch):
     """The model at ``smoke_config`` width on the card against the same
     code on the CPU: init within 8 ULP, logits on equal weights within
-    the CPU tests' port-against-reference tolerance (0.02)."""
+    the CPU tests' port-against-reference tolerance (0.02).  The vlm's
+    patch prefix is scaled to 8 positions, inside the 16-token batch; its
+    decode starts after a prefill over the patches and 4 text tokens."""
     from repro_torch.configs import get_config
+    from repro_torch.launch import serve
     from repro_torch.launch.train import pipeline_for, smoke_config
     from repro_torch.models import registry
     from repro_torch.models.common import flatten, unflatten
     cfg = smoke_config(get_config(arch))
+    if cfg.family == "vlm":
+        cfg = cfg.scaled(vision_prefix=8)
     m_cpu, m_card = registry.build(cfg, "cpu"), registry.build(cfg, cuda)
     p_cpu = flatten(m_cpu.init(0)[0])
     p_card = flatten(m_card.init(0)[0])
@@ -636,17 +642,40 @@ def test_serve_smoke_width_card_matches_cpu(cuda, arch):
         got = p_card[path].cpu()
         assert int((_ordered_f32(got) - _ordered_f32(want)).abs().max()) \
             <= 8, path
-    toks = pipeline_for(cfg, 4, 16, 0, device="cpu").batch_at(0)["tokens"]
-    want, _ = m_cpu.forward(unflatten(p_cpu), {"tokens": toks})
+    batch = pipeline_for(cfg, 4, 16, 0, device="cpu").batch_at(0)
+    batch.pop("labels")
+    assert ("patches" in batch) == (cfg.family == "vlm")
+    want, _ = m_cpu.forward(unflatten(p_cpu), batch)
     same = unflatten({k: v.to(cuda) for k, v in p_cpu.items()})
-    got, _ = m_card.forward(same, {"tokens": toks.to(cuda)})
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    got, _ = m_card.forward(same, on_card)
     assert float((got.cpu() - want).abs().max()) <= 0.02
+    toks = on_card["tokens"]
+    p0 = cfg.vision_prefix + 4 if cfg.family == "vlm" else 0
     cache = m_card.init_cache(4, 16)
-    for pos in range(16):
-        lg, cache = m_card.decode(same, cache, toks[:, pos:pos + 1].to(cuda),
-                                  pos)
+    if p0:
+        pc = m_card.prefill(same, dict(on_card, tokens=toks[:, :p0]))[1]
+        cache = serve._graft(cfg, cache, pc, p0)
+    for pos in range(p0, 16):
+        lg, cache = m_card.decode(same, cache, toks[:, pos:pos + 1], pos)
         assert float((lg.cpu() - want[:, pos]).abs().max()) <= 0.15 + \
             0.05 * float(want[:, pos].abs().max())
+
+
+def test_float8_cast_on_card_equals_cpu(cuda):
+    """``layers.cast`` to float8_e4m3fn (the qwen1.5-32b KV cache's write)
+    on every bf16 bit pattern: the card's NaN positions and bytes equal
+    the CPU's, which the CPU tests hold against the reference."""
+    from repro_torch.models import layers as L
+    x = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    want = L.cast(x, torch.float8_e4m3fn)
+    got = L.cast(x.to(cuda), torch.float8_e4m3fn).cpu()
+    nan = torch.isnan(want.to(torch.float32))
+    assert 0 < int(nan.sum()) < x.numel()
+    assert torch.equal(torch.isnan(got.to(torch.float32)), nan)
+    assert torch.equal(got.view(torch.uint8)[~nan],
+                       want.view(torch.uint8)[~nan])
 
 
 def test_chunked_init_on_card_equals_whole_draw(cuda):

@@ -520,6 +520,36 @@ def test_logits_match_reference(arch, kind, ref_models):
     assert np.abs(_np(got) - _np(want)).max() <= LOGIT_ATOL
 
 
+def test_vlm_refuses_a_prompt_shorter_than_its_patch_prefix(ref_models):
+    """ROADMAP C11.  With an 8-position patch prefix, a 4-token prompt
+    raises ValueError in the reference's forward and prefill (its pad
+    refuses a negative width) and in the port's, where a negative
+    ``F.pad`` would crop the patches, and in the port's ``launch.serve``;
+    8- and 12-token prompts give the reference's logits."""
+    from repro_torch.launch import serve, train
+    jc, tc = (c.scaled(vision_prefix=8) for c in _cfgs("qwen2_vl_72b"))
+    jp, _, jm = ref_models["qwen2_vl_72b"]
+    tm = t_registry.build(tc, device=CPU)
+    tp = convert.params_from_reference(tc, jp, device=CPU)
+    for S in (4, 8, 12):
+        jb, tb = _batch(jc, 2, S, seed=7)
+        for kind in ("forward", "prefill"):
+            if S < tc.vision_prefix:
+                with pytest.raises(ValueError):
+                    jm[kind](jp, jb)
+                with pytest.raises(ValueError, match="of 4 tokens is shorter "
+                                   "than its patch prefix of 8"):
+                    getattr(tm, kind)(tp, tb)
+                continue
+            got, want = getattr(tm, kind)(tp, tb)[0], jm[kind](jp, jb)[0]
+            assert got.shape == tuple(np.shape(want))
+            assert np.abs(_np(got) - _np(want)).max() <= LOGIT_ATOL
+    cfg = train.smoke_config(t_base.get_config("qwen2_vl_72b"))
+    with pytest.raises(ValueError, match="shorter than its patch prefix"):
+        serve.serve(cfg.scaled(vision_prefix=8), batch=2, prompt_len=4,
+                    gen=2, device=CPU)
+
+
 def test_decode_refuses_a_position_past_the_cache():
     _, tc = _cfgs("glm4_9b")
     m = t_registry.build(tc, device=CPU)

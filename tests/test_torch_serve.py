@@ -124,18 +124,26 @@ def test_token_picker_equal_reference_on_equal_logits(temperature, path):
         assert t_pick.sampler.stats()["calls_per_step"] == 1.0
 
 
+# smoke width keeps the vlm's 1024-position patch prefix, and a prompt
+# shorter than the prefix is refused: scale it to the 8-token prompt
+SERVE_OVERRIDES = {"qwen2_vl_72b": dict(vision_prefix=8)}
+
+
 @pytest.mark.parametrize("arch,temperature", [
     ("glm4_9b", 0.8), ("gemma_7b", 0.0), ("olmoe_1b_7b", 0.8),
     ("granite_moe_3b", 0.0), ("mamba2_2p7b", 0.8), ("zamba2_7b", 0.0),
-    ("whisper_small", 0.8)])
+    ("whisper_small", 0.8), ("qwen2_vl_72b", 0.8)])
 def test_serve_teacher_forced_on_reference_tokens(arch, temperature,
                                                   monkeypatch):
     """The reference serves B=2 prompts for 6 tokens; the port serves the
     same config, its decode fed the reference's tokens, and each of its
-    picks equals the reference's."""
+    picks equals the reference's.  The vlm's patches flow through
+    prefill, graft and decode."""
     kw = dict(batch=2, prompt_len=8, gen=6, seed=1, temperature=temperature)
-    want, _ = j_serve.serve(j_train.smoke_config(j_get_config(arch)),
-                            sampler_path="xla", **kw)
+    over = SERVE_OVERRIDES.get(arch, {})
+    want, _ = j_serve.serve(
+        j_train.smoke_config(j_get_config(arch)).scaled(**over),
+        sampler_path="xla", **kw)
     picks = []
     real_pick = t_serve.TokenPicker.pick
 
@@ -144,8 +152,9 @@ def test_serve_teacher_forced_on_reference_tokens(arch, temperature,
         return torch.from_numpy(want[:, step:step + 1].astype(np.int32))
 
     monkeypatch.setattr(t_serve.TokenPicker, "pick", forced)
-    got, stats = t_serve.serve(t_train.smoke_config(t_get_config(arch)),
-                               device=CPU, **kw)
+    got, stats = t_serve.serve(
+        t_train.smoke_config(t_get_config(arch)).scaled(**over), device=CPU,
+        **kw)
     assert np.array_equal(np.stack(picks, 1), want)
     assert np.array_equal(got, want)
     assert got.shape == (2, 6) and stats["decode_tok_s"] > 0
