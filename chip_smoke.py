@@ -50,15 +50,23 @@ granite-34b and qwen2-vl-72b at published width cut in depth
 and the float8 KV cast against the plain versions and the CPU, each
 against the CPU at smoke width, served through ``launch.serve`` at batch
 64, decode against forward at 2 layers, profiles of qwen1.5-32b and
-qwen2-vl-72b decode steps.  Last the dry
-run: ``python -m repro_torch.launch.dryrun`` over every cell of both
-production meshes (meta tensors), and its RNG fan-out and service burst
-on the card, in subprocesses; ``rng_fanout_cell`` over 256, 512 and 4
-shards of the card (each block equal to one ``generate``);
-``service_cell`` on the card against the CPU; the dry run's argument
-bytes of every config served or trained above against the peak memory
-the card measured for it, and the depth the dry run predicts for each
-config the large path serves, beside the depth served.
+qwen2-vl-72b decode steps.  Then training beyond gemma-7b: ``train`` at
+the smoke width on the card against the CPU for nine configs (and for
+the five below a failure at step 3 resumed and ``--no-service``, one
+digest each), the train CLI on mamba2, and olmoe-1b-7b, mamba2-2.7b,
+zamba2-7b, whisper-small and qwen2-vl-72b at published width cut in
+depth (``TRAIN_FAMILY_LAYERS``) through ``make_train_step`` - two runs
+from one seed with equal parameter digests, finite step-0 gradients,
+step 0 against the unchunked loss, profiles of olmoe and mamba2 steps.
+Last the dry run: ``python -m repro_torch.launch.dryrun`` over every
+cell of both production meshes (meta tensors), and its RNG fan-out and
+service burst on the card, in subprocesses; ``rng_fanout_cell`` over
+256, 512 and 4 shards of the card (each block equal to one
+``generate``); ``service_cell`` on the card against the CPU; the dry
+run's argument bytes of every config served or trained above against
+the peak memory the card measured for it, and the depth the dry run
+predicts for each config the large path serves or the train families
+path trains, beside the depth served or trained.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -2888,34 +2896,71 @@ TRAIN_LOSS_ATOL = 0.02
 TRAIN_UNCHUNKED_ATOL = 1e-3
 TRAIN_ADAMW_SHAPE = (4096, 3072)
 TRAIN_PEAK_GIB = 72.0
+DIGEST_PIECE = 1 << 28      # bytes of a leaf one digest task hashes
 
 
 def _tree_digest(tree) -> str:
-    """sha256 over each leaf's path and the sha256 of its bytes, in
-    sorted path order; the leaves are copied and hashed in threads
-    (hashlib releases the GIL)."""
+    """sha256 over each leaf's path and the sha256s of its bytes in
+    ``DIGEST_PIECE``-byte pieces, in sorted path order; 8 threads copy
+    the pieces to the host (through pinned buffers from the card) and hash
+    them (hashlib releases the GIL), so one large leaf is hashed by all
+    of them."""
     import hashlib
+    import queue
     from concurrent.futures import ThreadPoolExecutor
     import torch
     from repro_torch.models.common import flatten
     flat = sorted(flatten(tree).items())
+    pieces = []
+    for path, t in flat:
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        pieces += [(path, b[lo:lo + DIGEST_PIECE])
+                   for lo in range(0, max(b.numel(), 1), DIGEST_PIECE)]
+    bufs = queue.SimpleQueue()
+    for _ in range(8):
+        bufs.put(torch.empty(DIGEST_PIECE, dtype=torch.uint8,
+                             pin_memory=pieces[0][1].is_cuda))
 
-    def leaf(t):
-        host = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
-        return hashlib.sha256(host.numpy()).digest()
+    def piece(b):
+        buf = bufs.get()
+        try:
+            host = buf[:b.numel()]
+            host.copy_(b)
+            return hashlib.sha256(host.numpy()).digest()
+        finally:
+            bufs.put(buf)
 
     with ThreadPoolExecutor(8) as ex:
-        digests = list(ex.map(leaf, [t for _, t in flat]))
+        digests = list(ex.map(piece, [b for _, b in pieces]))
     h = hashlib.sha256()
-    for (path, _), d in zip(flat, digests):
+    for (path, _), d in zip(pieces, digests):
         h.update(path.encode())
         h.update(d)
     return h.hexdigest()
 
 
-def _train_cfg(layers: int, **over):
+def _trained_shape(arch: str) -> dict:
+    """The shape at which the train paths train ``arch`` at full width:
+    the depth trained (``layers``), the reference CLI's ``batch`` and
+    ``seq`` (a vlm's: its patch prefix + ``TRAIN_VLM_TEXT`` text
+    positions, as it refuses a shorter one) and the batch's ``extras``
+    {name: shape}, a vlm's patches or an encdec's frames."""
     from repro_torch.configs import get_config
-    return get_config(TRAIN_ARCH).scaled(n_layers=layers, **over)
+    cfg = get_config(arch)
+    seq = (cfg.vision_prefix + TRAIN_VLM_TEXT if cfg.vision_prefix
+           else TRAIN_SEQ)
+    return dict(layers=TRAIN_LAYERS if arch == TRAIN_ARCH
+                else TRAIN_FAMILY_LAYERS[arch], batch=TRAIN_BATCH, seq=seq,
+                extras={k: tuple(v.shape) for k, v in
+                        _extra_inputs(cfg, TRAIN_BATCH).items()})
+
+
+def _trained_cfg(arch: str, layers: int = 0):
+    """``arch``'s published config cut to ``layers`` (default: the depth
+    trained)."""
+    from repro_torch.configs import get_config
+    return get_config(arch).scaled(
+        n_layers=layers or _trained_shape(arch)["layers"])
 
 
 def _step_bound(steps: int) -> float:
@@ -2984,18 +3029,10 @@ def phase_train_draws(device) -> None:
     """Kernel A at the train path's own shapes against the plain version:
     the ragged last chunk of the 8-layer ``layers/wg`` and a step's batch
     uniforms.  Runs before the path's counts are reset."""
-    import math
     from repro_torch.core import stream as tstream
     from repro_torch.launch.train import pipeline_for
-    from repro_torch.models import registry
-    from repro_torch.models.common import PARAM_CHUNK, flatten, param_stream
-    cfg = _train_cfg(TRAIN_LAYERS)
-    n = math.prod(flatten(registry.build(cfg, "meta").init(0)[0])[
-        "layers/wg"].shape)
-    lo = (n - 1) // PARAM_CHUNK * PARAM_CHUNK
-    _draw_against_plain(f"train layers/wg ({n} elements) last chunk",
-                        tstream.advance(param_stream(TRAIN_SEED, "layers/wg",
-                                                     device), lo), n - lo)
+    cfg = _trained_cfg(TRAIN_ARCH)
+    _param_chunk_draw(cfg, "layers/wg", -1, device)
     pipe = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED,
                         device=device)
     _draw_against_plain(f"train batch of step 3 ({TRAIN_BATCH}, "
@@ -3003,75 +3040,99 @@ def phase_train_draws(device) -> None:
                         TRAIN_BATCH * (TRAIN_SEQ + 1))
 
 
-def phase_train_smoke(device) -> None:
-    """(a) ``train`` for 4 steps at ``smoke_config(gemma_7b)`` on the card
-    and on the CPU: losses within ``TRAIN_LOSS_ATOL`` and parameters
-    within the schedule's bound of each other; then the CLI in a
-    subprocess: its loss lines equal the in-process card run's and its
-    final checkpoint holds the same parameters bit for bit."""
-    import os
+def _train_smoke(arch: str, device, seq: int, **over):
+    """``train`` for ``TRAIN_STEPS`` steps at ``smoke_config(arch)``
+    (scaled by ``over``), batch ``TRAIN_BATCH`` x ``seq``, on the card and
+    on the CPU: losses within ``TRAIN_LOSS_ATOL`` and parameters within
+    the schedule's bound of each other.  Returns (the config, the card
+    run's parameters, its losses, logged every step)."""
+    import contextlib
+    import io
     import shutil
     import torch
-    from repro_torch.checkpoint import load_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.launch.train import smoke_config, train
     from repro_torch.models.common import flatten
     t0 = time.perf_counter()
-    cfg = smoke_config(get_config(TRAIN_ARCH))
+    cfg = smoke_config(get_config(arch)).scaled(**over)
     runs = []
     for i, dev in enumerate((device, torch.device("cpu"))):
-        d = TRAIN_DIR / f"smoke_{i}"
+        d = TRAIN_DIR / f"smoke_{arch}_{i}"
         shutil.rmtree(d, ignore_errors=True)
-        runs.append(train(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
-                          seq_len=TRAIN_SEQ, ckpt_dir=str(d), save_every=2,
-                          seed=TRAIN_SEED, device=dev))
+        with contextlib.redirect_stdout(io.StringIO()):
+            runs.append(train(cfg, steps=TRAIN_STEPS,
+                              global_batch=TRAIN_BATCH, seq_len=seq,
+                              ckpt_dir=str(d), save_every=2,
+                              seed=TRAIN_SEED, log_every=1, device=dev))
         shutil.rmtree(d, ignore_errors=True)
     (pc, _, lc), (pp, _, lp) = runs
     loss_err = max(abs(a - b) for (_, a), (_, b) in zip(lc, lp))
     fc, fp = flatten(pc), flatten(pp)
     p_err = max(float((fc[k].cpu() - fp[k]).abs().max()) for k in fp)
     bound = _step_bound(TRAIN_STEPS)
-    log(f"train smoke ({cfg.d_model}/{cfg.n_layers} layers/V {cfg.vocab}, "
-        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps) card vs "
-        f"cpu: losses {[round(l, 6) for _, l in lc]}, max |diff| "
-        f"{loss_err:.3g} (limit {TRAIN_LOSS_ATOL}); params max |diff| "
-        f"{p_err:.3g} (limit {bound:.3g}, 2 lr a step)")
-    require(len(lc) == len(lp) and [s for s, _ in lc] == [s for s, _ in lp],
-            "train smoke: the runs logged different steps")
-    require(loss_err <= TRAIN_LOSS_ATOL, "train smoke: card losses differ "
-                                         "from the CPU's")
-    require(p_err <= bound, "train smoke: card params differ from the "
-                            "CPU's beyond the schedule's bound")
-    cli_dir = TRAIN_DIR / "cli"
+    log(f"train smoke {arch} ({cfg.d_model}/{cfg.n_layers} layers/V "
+        f"{cfg.vocab}{over or ''}, batch {TRAIN_BATCH} x {seq}, "
+        f"{TRAIN_STEPS} steps) card vs cpu: losses "
+        f"{[round(l, 6) for _, l in lc]}, max |diff| {loss_err:.3g} (limit "
+        f"{TRAIN_LOSS_ATOL}); params max |diff| {p_err:.3g} (limit "
+        f"{bound:.3g}, 2 lr a step); {time.perf_counter() - t0:.1f} s")
+    require(len(lc) == len(lp) == TRAIN_STEPS
+            and [s for s, _ in lc] == [s for s, _ in lp],
+            f"train smoke {arch}: the runs logged different steps")
+    require(loss_err <= TRAIN_LOSS_ATOL, f"train smoke {arch}: card losses "
+                                         f"differ from the CPU's")
+    require(p_err <= bound, f"train smoke {arch}: card params differ from "
+                            f"the CPU's beyond the schedule's bound")
+    return cfg, pc, lc
+
+
+def _train_cli(arch: str, seq: int, params, losses) -> None:
+    """``python -m repro_torch.launch.train --arch arch --smoke`` in a
+    subprocess on the card: its loss lines equal the in-process card run's
+    (``_train_smoke``) and its final checkpoint holds the same parameters
+    bit for bit."""
+    import os
+    import shutil
+    import torch
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.models.common import flatten
+    t0 = time.perf_counter()
+    cli_dir = TRAIN_DIR / f"cli_{arch}"
     shutil.rmtree(cli_dir, ignore_errors=True)
     args = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-            TRAIN_ARCH, "--smoke", "--steps", str(TRAIN_STEPS),
+            arch, "--smoke", "--steps", str(TRAIN_STEPS),
             "--save-every", "2", "--global-batch", str(TRAIN_BATCH),
-            "--seq-len", str(TRAIN_SEQ), "--seed", str(TRAIN_SEED),
+            "--seq-len", str(seq), "--seed", str(TRAIN_SEED),
             "--ckpt-dir", str(cli_dir)]
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run(args, env=env, cwd=ROOT, capture_output=True,
                          text=True, timeout=600)
-    require(out.returncode == 0, f"the train CLI failed: "
+    require(out.returncode == 0, f"the train CLI ({arch}) failed: "
             f"{out.stderr[-2000:]}")
     cli_lines = re.findall(r"^step .*$", out.stdout, re.M)
-    want = [f"step {s:5d} loss {l:.4f}" for s, l in lc]   # log_every 10
-    tree, step, _ = load_checkpoint(str(cli_dir), device=device)
+    # the CLI logs every 10th step and the first 3
+    want = [f"step {s:5d} loss {l:.4f}" for s, l in losses
+            if s < 3 or s % 10 == 0]
+    fc = flatten(params)
+    tree, step, _ = load_checkpoint(str(cli_dir),
+                                    device=next(iter(fc.values())).device)
     same = all(torch.equal(flatten(tree["params"])[k].view(torch.int32),
                            fc[k].view(torch.int32)) for k in fc)
     shutil.rmtree(cli_dir, ignore_errors=True)
-    log(f"train CLI (subprocess): {cli_lines} == in-process "
+    log(f"train CLI {arch} (subprocess): {cli_lines} == in-process "
         f"{cli_lines == want}; step-{step} checkpoint params bit-equal to "
         f"the in-process card run's: {same}; "
         f"{out.stdout.strip().splitlines()[-1]}; "
         f"{time.perf_counter() - t0:.1f} s")
-    require(cli_lines == want, "the train CLI's loss lines differ from the "
-                               "in-process run's")
-    require(step == TRAIN_STEPS and same, "the train CLI's parameters "
-                                          "differ from the in-process run's")
+    require(cli_lines == want, f"the train CLI's loss lines ({arch}) "
+                               f"differ from the in-process run's")
+    require(step == TRAIN_STEPS and same, f"the train CLI's parameters "
+                                          f"({arch}) differ from the "
+                                          f"in-process run's")
 
 
-def _train_profile(step_fn, params, opt, batch, step, device) -> None:
+def _train_profile(step_fn, params, opt, batch, step, device,
+                   label: str) -> None:
     """One step under ``torch.profiler``: busy share, device time by kind
     and the top kernels."""
     import torch
@@ -3098,10 +3159,10 @@ def _train_profile(step_fn, params, opt, batch, step, device) -> None:
         top.append((us, evt.key, evt.count))
     busy = sum(kinds.values())
     if busy <= 0.0:
-        log("train profile: not measured (the profiler recorded no device "
-            "time)")
+        log(f"train profile ({label}): not measured (the profiler recorded "
+            f"no device time)")
         return
-    log(f"train profile (one full-width step, {TRAIN_LAYERS} layers): wall "
+    log(f"train profile ({label}, one full-width step): wall "
         f"{wall_us / 1e3:.1f} ms; device busy {busy / 1e3:.1f} ms = "
         f"{busy / wall_us * 100:.1f} % (idle "
         f"{100 - busy / wall_us * 100:.1f} %)")
@@ -3112,116 +3173,178 @@ def _train_profile(step_fn, params, opt, batch, step, device) -> None:
         log(f"  top kernel {us / 1e3:.2f} ms x{count}: {key[:110]}")
 
 
-def _train_split(model, params, opt, batch, step, device):
-    """fwd + bwd and the AdamW update of one step, timed apart with CUDA
-    events (the same calls ``make_train_step``'s step makes)."""
-    import torch
-    from repro_torch.core import stream as tstream
-    from repro_torch.launch import steps
-    from repro_torch.optim import adamw_update, cosine_schedule
-    root = tstream.new_stream(TRAIN_SEED, 0xD07, device=device)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    ev[0].record()
-    (loss, _), grads = steps.value_and_grad(
-        model, params, batch, tstream.derive(root, step))
-    ev[1].record()
-    params, opt = adamw_update(grads, opt, params,
-                               lr=cosine_schedule(3e-4, 100, TRAIN_STEPS))
-    ev[2].record()
-    ev[2].synchronize()
-    log(f"train step split (step {step}): fwd + bwd "
-        f"{ev[0].elapsed_time(ev[1]):.1f} ms, AdamW update "
-        f"{ev[1].elapsed_time(ev[2]):.1f} ms (CUDA events)")
-    return params, opt
+class _StepWatch:
+    """While active, wraps the AdamW update that ``make_train_step``'s
+    step calls once its gradients are in: with ``check`` set, the next
+    call lists in ``nonfinite`` each gradient leaf holding a NaN or an
+    inf; every call records CUDA events at its start and end
+    (``update``), which split the step into fwd + bwd and the update."""
+
+    def __init__(self):
+        self.check, self.nonfinite, self.update = False, None, None
+
+    def __enter__(self):
+        import torch
+        from repro_torch.launch import steps
+        from repro_torch.models.common import flatten
+        self._real = real = steps.adamw_update
+
+        def watched(grads, opt_state, params, **kw):
+            if self.check:
+                self.check = False
+                # the max norm is NaN or inf where an element is, and
+                # takes no leaf-sized temporary (isfinite would)
+                self.nonfinite = [
+                    k for k, g in flatten(grads).items()
+                    if not bool(torch.isfinite(torch.linalg.vector_norm(
+                        g, float("inf"))))]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(grads, opt_state, params, **kw)
+            end.record()
+            self.update = (start, end)
+            return out
+        steps.adamw_update = watched
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import steps
+        steps.adamw_update = self._real
 
 
-def phase_train_full(device, measured: dict) -> None:
-    """(b) gemma-7b at full width, ``TRAIN_LAYERS`` layers: step 0's loss
-    against ``model.forward`` + the unchunked ``softmax_xent``; then
-    ``make_train_step`` with ``adamw_init`` for 4 steps, twice from the
-    same seed: equal sha256 digests of the parameters.  Reports init s,
-    step s, tokens/s, peak memory (into ``measured[(arch, "train")]``),
-    the fwd+bwd / update split and one step's profile."""
+def _train_full(arch: str, device, measured: dict, steps: int,
+                profile: bool) -> None:
+    """``arch`` at published width, cut to the depth ``_trained_shape``
+    gives, through ``make_train_step`` with ``adamw_init``: ``steps``
+    steps, twice from one seed - equal sha256 digests of the parameters;
+    every gradient of step 0 finite; step 0's chunked, remat'd loss
+    against ``model.forward`` + the unchunked ``softmax_xent`` (+ the
+    weighted aux loss) at step 0's rng; for an MoE, the choices step 0's
+    forward dropped past the capacity.  Reports init s, step s (p50 of
+    steps 1 on), tokens/s, peak memory (into ``measured[(arch,
+    "train")]``), the last step's fwd + bwd / update split (CUDA events)
+    and, with ``profile``, one more step under the profiler."""
+    import contextlib
     import numpy as np
     import torch
-    from repro_torch.launch import steps
+    from repro_torch.configs import get_config
+    from repro_torch.core import stream as tstream
+    from repro_torch.launch import steps as steps_mod
     from repro_torch.launch.train import pipeline_for
     from repro_torch.models import layers as L
     from repro_torch.models import registry
     from repro_torch.models.common import flatten
     from repro_torch.optim import adamw_init
-    cfg = _train_cfg(TRAIN_LAYERS)
+    shape = _trained_shape(arch)
+    B, S = shape["batch"], shape["seq"]
+    cfg = _trained_cfg(arch)
+    tag = f"{arch} ({cfg.n_layers} layers)"
     model = registry.build(cfg, device)
-    pipe = pipeline_for(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEED,
-                        device=device)
+    pipe = pipeline_for(cfg, B, S, TRAIN_SEED, device=device)
+    rng0 = tstream.derive(tstream.new_stream(TRAIN_SEED, 0xD07,
+                                             device=device), 0)
     digests, step_s, init_s, peaks = [], [], [], []
-    for run in range(2):
-        _free_card()
-        torch.cuda.reset_peak_memory_stats(device)
-        t0 = time.perf_counter()
-        params, _ = model.init(TRAIN_SEED)
-        sync(device)
-        init_s.append(time.perf_counter() - t0)
-        if run == 0:
-            n = sum(p.numel() for p in flatten(params).values())
-            log(f"train full width: {cfg.name} d_model {cfg.d_model}, "
-                f"{cfg.n_heads} heads x {cfg.resolved_head_dim}, d_ff "
-                f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.n_layers} of 28 "
-                f"layers: {n} parameters ({n * 16 / 1e9:.1f} GB of float32 "
-                f"params, grads, m, v); batch {TRAIN_BATCH} x {TRAIN_SEQ}")
-            with torch.no_grad():
-                b0 = pipe.batch_at(0)
-                logits, _ = model.forward(params, b0)
-                whole = float(L.softmax_xent(logits, b0["labels"]))
-                del logits
-        opt = adamw_init(params)
-        step_fn = steps.make_train_step(model, seed=TRAIN_SEED,
-                                        total_steps=TRAIN_STEPS)
-        losses, times = [], []
-        for s in range(TRAIN_STEPS):
-            batch = pipe.batch_at(s)
-            sync(device)
+    with _StepWatch() as watch:
+        for run in range(2):
+            _free_card()
+            torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
-            params, opt, met = step_fn(params, opt, batch, s)
-            losses.append(float(met["loss"]))
+            params, _ = model.init(TRAIN_SEED)
             sync(device)
-            times.append(time.perf_counter() - t0)
-        peaks.append(torch.cuda.max_memory_allocated(device))
-        t0 = time.perf_counter()
-        digests.append(_tree_digest(params))
-        step_s.extend(times[1:])
-        log(f"train full run {run}: init {init_s[-1]:.3f} s; step s "
-            f"{[round(t, 4) for t in times]}; losses {losses}; peak "
-            f"{peaks[-1] / 2 ** 30:.2f} GiB; params sha256 "
-            f"{digests[-1][:16]} ({time.perf_counter() - t0:.1f} s)")
-        if run == 0:
-            err = abs(losses[0] - whole)
-            log(f"train step 0 loss {losses[0]:.6f} (chunked, remat) vs "
-                f"forward + unchunked xent {whole:.6f}: |diff| {err:.3g} "
-                f"(limit {TRAIN_UNCHUNKED_ATOL})")
-            require(err <= TRAIN_UNCHUNKED_ATOL, "train: step 0's chunked "
-                    "loss differs from the unchunked one")
-        require(all(np.isfinite(losses)), "train: a non-finite loss")
-        if run == 1:
-            params, opt = _train_split(model, params, opt,
-                                       pipe.batch_at(TRAIN_STEPS),
-                                       TRAIN_STEPS, device)
-            _train_profile(step_fn, params, opt,
-                           pipe.batch_at(TRAIN_STEPS + 1), TRAIN_STEPS + 1,
-                           device)
-        del params, opt
-    measured[(TRAIN_ARCH, "train")] = list(peaks)
+            init_s.append(time.perf_counter() - t0)
+            if run == 0:
+                n = sum(p.numel() for p in flatten(params).values())
+                extras = "".join(f", {k} {v}"
+                                 for k, v in shape["extras"].items())
+                log(f"train full width: {cfg.name} [{cfg.family}] d_model "
+                    f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.n_layers} of "
+                    f"{get_config(arch).n_layers} layers: {n} parameters "
+                    f"({n * 16 / 1e9:.1f} GB of float32 params, grads, m, "
+                    f"v); batch {B} x {S}{extras}")
+                with torch.no_grad():
+                    b0 = pipe.batch_at(0)
+                    logits, aux = model.forward(params, b0, rng0)
+                    whole = float(L.softmax_xent(logits, b0["labels"])
+                                  + registry.AUX_WEIGHT * aux)
+                    del logits
+            opt = adamw_init(params)
+            step_fn = steps_mod.make_train_step(model, seed=TRAIN_SEED,
+                                                total_steps=steps)
+            losses, times = [], []
+            for s in range(steps):
+                batch = pipe.batch_at(s)
+                first = run == 0 and s == 0
+                watch.check = first
+                routes = (_MoeRoutes() if first and cfg.family == "moe"
+                          else contextlib.nullcontext())
+                sync(device)
+                t0 = time.perf_counter()
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+                with routes as drops:
+                    params, opt, met = step_fn(params, opt, batch, s)
+                losses.append(float(met["loss"]))
+                sync(device)
+                times.append(time.perf_counter() - t0)
+                if first:
+                    log(f"train {tag} step 0: gradient leaves not finite "
+                        f"{watch.nonfinite} (of {len(flatten(params))})")
+                    require(watch.nonfinite == [], f"train {tag}: step 0 "
+                            f"has non-finite gradients {watch.nonfinite}")
+                if drops is not None:
+                    masks = [c[1] for c in drops.calls[:cfg.n_layers]]
+                    log(f"train {tag} step 0: (token, choice) pairs dropped "
+                        f"past the capacity in the forward "
+                        f"{sum(int(m.sum()) for m in masks)} of "
+                        f"{sum(m.numel() for m in masks)} over "
+                        f"{len(masks)} layers")
+            peaks.append(torch.cuda.max_memory_allocated(device))
+            t0 = time.perf_counter()
+            digests.append(_tree_digest(params))
+            step_s.extend(times[1:])
+            log(f"train {tag} run {run}: init {init_s[-1]:.3f} s; step s "
+                f"{[round(t, 4) for t in times]}; losses {losses}; peak "
+                f"{peaks[-1] / 2 ** 30:.2f} GiB; params sha256 "
+                f"{digests[-1][:16]} ({time.perf_counter() - t0:.1f} s)")
+            if run == 0:
+                err = abs(losses[0] - whole)
+                log(f"train {tag} step 0 loss {losses[0]:.6f} (chunked, "
+                    f"remat) vs forward + unchunked xent {whole:.6f}: |diff| "
+                    f"{err:.3g} (limit {TRAIN_UNCHUNKED_ATOL})")
+                require(err <= TRAIN_UNCHUNKED_ATOL, f"train {tag}: step "
+                        f"0's chunked loss differs from the unchunked one")
+            require(all(np.isfinite(losses)), f"train {tag}: a non-finite "
+                                              f"loss")
+            if run == 1:
+                upd0, upd1 = watch.update
+                log(f"train {tag} step {steps - 1} split: fwd + bwd "
+                    f"{start.elapsed_time(upd0):.1f} ms, AdamW update "
+                    f"{upd0.elapsed_time(upd1):.1f} ms (CUDA events)")
+                if profile:
+                    _train_profile(step_fn, params, opt,
+                                   pipe.batch_at(steps), steps, device, tag)
+            del params, opt
+    measured[(arch, "train")] = list(peaks)
     p50 = float(np.percentile(step_s, 50))
     total = torch.cuda.get_device_properties(device).total_memory
-    log(f"train full width: init {min(init_s):.3f}-{max(init_s):.3f} s; "
-        f"step p50 {p50:.4f} s (steps 1-{TRAIN_STEPS - 1} of 2 runs) = "
-        f"{TRAIN_BATCH * TRAIN_SEQ / p50:.0f} tokens/s; peak memory "
+    log(f"train full width {tag}: init {min(init_s):.3f}-"
+        f"{max(init_s):.3f} s; step p50 {p50:.4f} s (steps 1-{steps - 1} "
+        f"of 2 runs) = {B * S / p50:.0f} tokens/s; peak memory "
         f"{max(peaks) / 2 ** 30:.2f} GiB of {total / 2 ** 30:.1f}; digests "
         f"equal {digests[0] == digests[1]} ({card_line()})")
-    require(digests[0] == digests[1], "train: two runs from one seed gave "
-                                      "different parameters")
-    require(max(peaks) / 2 ** 30 <= TRAIN_PEAK_GIB,
-            f"train: peak memory above {TRAIN_PEAK_GIB} GiB")
+    require(digests[0] == digests[1], f"train {tag}: two runs from one "
+                                      f"seed gave different parameters")
+
+
+def _require_train_peaks(measured: dict, archs) -> None:
+    """Each of ``archs``' full-width train peaks at most
+    ``TRAIN_PEAK_GIB`` (checked once all have run, so that one config's
+    failure does not hide the others' peaks)."""
+    for arch in archs:
+        peak = max(measured[(arch, "train")]) / 2 ** 30
+        require(peak <= TRAIN_PEAK_GIB, f"train {arch}: peak memory "
+                f"{peak:.2f} GiB above {TRAIN_PEAK_GIB} GiB")
 
 
 class _CheckpointMeter:
@@ -3278,7 +3401,7 @@ def phase_train_loop(device) -> None:
     from repro_torch.launch import steps
     from repro_torch.launch.train import pipeline_for, train
     from repro_torch.models import registry
-    cfg = _train_cfg(TRAIN_LOOP_LAYERS)
+    cfg = _trained_cfg(TRAIN_ARCH, TRAIN_LOOP_LAYERS)
     TRAIN_DIR.mkdir(parents=True, exist_ok=True)
     du = shutil.disk_usage(TRAIN_DIR)
     log(f"train loop: disk at {TRAIN_DIR}: {du.free / 1e9:.1f} GB free of "
@@ -3348,14 +3471,18 @@ def phase_train_path(device, measured: dict) -> dict:
     against the plain versions on the CPU / card first, then the smoke
     width on the card against the CPU and the CLI, then - kernel A's
     counts set to 0 just before and read just after - gemma-7b at full
-    width: 8 layers through ``make_train_step``, 2 layers through
-    ``train`` with its loop and checkpoints."""
+    width: 8 layers through ``make_train_step`` (``_train_full``, with a
+    profiled step), 2 layers through ``train`` with its loop and
+    checkpoints."""
     from repro_torch.kernels import thundering_block as tb
     phase_train_adamw(device)
     phase_train_draws(device)
-    phase_train_smoke(device)
+    _, params, losses = _train_smoke(TRAIN_ARCH, device, TRAIN_SEQ)
+    _train_cli(TRAIN_ARCH, TRAIN_SEQ, params, losses)
+    del params
     tb.reset_counts()
-    phase_train_full(device, measured)
+    _train_full(TRAIN_ARCH, device, measured, TRAIN_STEPS, profile=True)
+    _require_train_peaks(measured, [TRAIN_ARCH])
     phase_train_loop(device)
     launches = {"thundering_ctr": tb.thundering_ctr.launches}
     plain_runs = (tb.thundering_ctr_plain.cuda_runs
@@ -3930,6 +4057,148 @@ def phase_large_path(device, measured: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the train families path: one config of each family the train path does
+# not train, at published width cut in depth, through make_train_step and
+# train
+# ---------------------------------------------------------------------------
+
+TRAIN_FAMILY_ARCHS = ("olmoe_1b_7b", "mamba2_2p7b", "whisper_small",
+                      "qwen2_vl_72b", "zamba2_7b")
+# Trained at published width with float32 parameters, AdamW's m and v and
+# float32 gradients (16 B a parameter), cut in depth only: each from the
+# most layers whose dry-run bytes and gradients fit the card less
+# gemma-7b's measured transients (11, 64, 12, 2 and 61 layers), lower only
+# as far as the measured peak must stay under TRAIN_PEAK_GIB.  Peaks
+# allocated on an H100 80GB HBM3 at 700 W (tools/train_path.py --path
+# families and chip_smoke.py):
+TRAIN_FAMILY_LAYERS = {
+    "olmoe_1b_7b": 9,       # of 16: 67.09 GiB; 10 ran out of memory
+    "mamba2_2p7b": 64,      # of 64: 44.23 GiB
+    "whisper_small": 12,    # of 12 (+ 12 encoder layers): 5.41 GiB
+    # of 80: 68.24 GiB; a third layer's bytes and gradients alone add
+    # 13.08 GiB
+    "qwen2_vl_72b": 2,
+    # of 81: 71.67 GiB (7 applications of the shared block and 5 layers
+    # after them); a 48th layer's bytes and gradients alone add 1.16 GiB
+    "zamba2_7b": 47,
+}
+TRAIN_FAMILY_STEPS = 3
+# a vlm trains on its 1024-position patch prefix + 128 text positions
+TRAIN_VLM_TEXT = 128
+TRAIN_FAMILY_PROFILE = ("olmoe_1b_7b", "mamba2_2p7b")
+# card against CPU through train at the smoke width: the five, the other
+# MoE and the three large dense configs
+TRAIN_SMOKE_ARCHS = TRAIN_FAMILY_ARCHS + ("granite_moe_3b", "glm4_9b",
+                                          "qwen15_32b", "granite_34b")
+TRAIN_SMOKE_SEQ = 64
+TRAIN_CLI_ARCH = "mamba2_2p7b"
+
+
+def phase_train_families_draws(device) -> None:
+    """Kernel A against its plain version, bit for bit, at the draw shapes
+    this path reaches first: the ragged last 2**28 chunk of the largest
+    stacked matrix of olmoe-1b-7b (its experts), mamba2-2.7b and zamba2-7b
+    (their SSD input projections) at the depths trained and the first
+    chunk of the largest of them, and the uniforms under the vlm's (8,
+    1024, 8192) patches and whisper's (8, 1500, 768) frames of
+    ``pipeline_for(...).batch_at(0)``."""
+    import math
+    from repro_torch.core import stream as tstream
+    from repro_torch.launch.train import pipeline_for
+    from repro_torch.models import registry
+    from repro_torch.models.common import flatten
+    largest = []
+    for arch in ("olmoe_1b_7b", "mamba2_2p7b", "zamba2_7b"):
+        cfg = _trained_cfg(arch)
+        shapes = flatten(registry.build(cfg, "meta").init(TRAIN_SEED)[0])
+        n, path = max((t.numel(), p) for p, t in shapes.items()
+                      if p.startswith("layers/"))
+        _param_chunk_draw(cfg, path, -1, device)
+        largest.append((n, path, arch))
+    _, path, arch = max(largest)
+    _param_chunk_draw(_trained_cfg(arch), path, 0, device)
+    for arch in ("qwen2_vl_72b", "whisper_small"):
+        shape = _trained_shape(arch)
+        pipe = pipeline_for(_trained_cfg(arch), shape["batch"], shape["seq"],
+                            TRAIN_SEED, device=device)
+        (name, dims), = shape["extras"].items()
+        est = tstream.derive(tstream.derive(pipe._root, 0), 0xE57A)
+        _draw_against_plain(f"{arch} train {name} {dims}", est,
+                            math.prod(dims))
+
+
+def _train_resume(arch: str, device, seq: int, cfg, params, losses) -> None:
+    """``train`` at the smoke width on the card with a failure at step 3
+    (resumed from step 2's checkpoint) and with ``use_service=False``:
+    parameters bit-equal to the uninterrupted run's (``_train_smoke``),
+    every loss equal."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.launch.train import train
+    t0 = time.perf_counter()
+    digests, logged = {"clean": _tree_digest(params)}, {}
+    for name, kw in (("fail@3", dict(fail_at=3)),
+                     ("no-service", dict(use_service=False))):
+        d = TRAIN_DIR / f"{arch}_{name.replace('@', '_')}"
+        shutil.rmtree(d, ignore_errors=True)
+        with contextlib.redirect_stdout(io.StringIO()):
+            p, _, logged[name] = train(
+                cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                seq_len=seq, ckpt_dir=str(d), save_every=2, seed=TRAIN_SEED,
+                log_every=1, device=device, **kw)
+        shutil.rmtree(d, ignore_errors=True)
+        digests[name] = _tree_digest(p)
+    log(f"train resume {arch} on the card: params sha256 "
+        f"{ {k: v[:16] for k, v in digests.items()} }; fail@3 logged steps "
+        f"{[s for s, _ in logged['fail@3']]}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(len(set(digests.values())) == 1, f"train resume {arch}: "
+            f"digests differ")
+    require(dict(logged["fail@3"]) == dict(losses)
+            == dict(logged["no-service"]), f"train resume {arch}: losses "
+                                           f"differ")
+    require([s for s, _ in logged["fail@3"]] == [0, 1, 2, 2, 3],
+            f"train resume {arch}: the failed run did not resume at step 2")
+
+
+def phase_train_families_path(device, measured: dict) -> dict:
+    """Training beyond gemma-7b: (a) kernel A at the path's new draw
+    shapes against the plain version; (b) ``train`` at the smoke width on
+    the card against the CPU for ``TRAIN_SMOKE_ARCHS``, and for the five
+    families a failure at step 3 resumed and ``--no-service`` on the card,
+    one digest each; (c) the train CLI on mamba2 in a subprocess; then -
+    kernel A's counts set to 0 just before and read just after - (d) each
+    of ``TRAIN_FAMILY_ARCHS`` at published width cut to
+    ``TRAIN_FAMILY_LAYERS`` through ``make_train_step`` (``_train_full``),
+    olmoe and mamba2 with a profiled step."""
+    from repro_torch.kernels import thundering_block as tb
+    phase_train_families_draws(device)
+    for arch in TRAIN_SMOKE_ARCHS:
+        cfg, params, losses = _train_smoke(arch, device, TRAIN_SMOKE_SEQ,
+                                           **LARGE_SMOKE.get(arch, {}))
+        if arch in TRAIN_FAMILY_ARCHS:
+            _train_resume(arch, device, TRAIN_SMOKE_SEQ, cfg, params, losses)
+        if arch == TRAIN_CLI_ARCH:
+            _train_cli(arch, TRAIN_SMOKE_SEQ, params, losses)
+        del params
+    tb.reset_counts()
+    for arch in TRAIN_FAMILY_ARCHS:
+        _train_full(arch, device, measured, TRAIN_FAMILY_STEPS,
+                    profile=arch in TRAIN_FAMILY_PROFILE)
+    _require_train_peaks(measured, TRAIN_FAMILY_ARCHS)
+    launches = {"thundering_ctr": tb.thundering_ctr.launches}
+    plain_runs = (tb.thundering_ctr_plain.cuda_runs
+                  + tb.thundering_faithful_plain.cuda_runs)
+    log(f"train families path: launches {launches}; plain versions run on "
+        f"the card: {plain_runs}")
+    require(launches["thundering_ctr"] > 0, "kernel A never launched on "
+                                            "the train families path")
+    require(plain_runs == 0, "a plain version ran on a CUDA tensor")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the dryrun path: the dry run's CLI, the RNG fan-out and the service cell
 # on the card, and the dry run's argument bytes against the card's peaks
 # ---------------------------------------------------------------------------
@@ -4086,6 +4355,26 @@ def phase_dryrun_service(device) -> None:
                                             "requests")
 
 
+def _extra_inputs(cfg, batch: int) -> dict:
+    """The extra inputs of a batch of ``cfg`` on ``meta``, as
+    ``pipeline_for`` draws them: a vlm's patches, an encdec's frames."""
+    import torch
+    out = {}
+    if cfg.family == "vlm":
+        out["patches"] = torch.empty(
+            (batch, cfg.vision_prefix, cfg.d_model), dtype=torch.bfloat16,
+            device="meta")
+    if cfg.family == "encdec":
+        out["frames"] = torch.empty((batch, cfg.enc_ctx, cfg.d_model),
+                                    dtype=torch.bfloat16, device="meta")
+    return out
+
+
+def _one_device():
+    from repro_torch.launch.mesh import make_mesh_auto
+    return make_mesh_auto((1, 1), ("data", "model"), device="meta")
+
+
 def _served_bytes(arch: str, batch: int, prompt: int, ctx: int,
                   layers: int = 0) -> dict:
     """The dry run's argument bytes of serving ``arch`` (float32
@@ -4095,7 +4384,6 @@ def _served_bytes(arch: str, batch: int, prompt: int, ctx: int,
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_mesh_auto
     from repro_torch.models import registry
     cfg = get_config(arch)
     if layers:
@@ -4103,16 +4391,30 @@ def _served_bytes(arch: str, batch: int, prompt: int, ctx: int,
     model = registry.build(cfg, "meta")
     specs = {"tokens": torch.empty((batch, prompt), dtype=torch.int32,
                                    device="meta"),
-             "cache": model.init_cache(batch, ctx)}
-    if cfg.family == "vlm":
-        specs["patches"] = torch.empty(
-            (batch, cfg.vision_prefix, cfg.d_model), dtype=torch.bfloat16,
-            device="meta")
-    if cfg.family == "encdec":
-        specs["frames"] = torch.empty((batch, cfg.enc_ctx, cfg.d_model),
-                                      dtype=torch.bfloat16, device="meta")
-    one = make_mesh_auto((1, 1), ("data", "model"), device="meta")
-    return dryrun.argument_bytes(model, specs, one, "decode")
+             "cache": model.init_cache(batch, ctx),
+             **_extra_inputs(cfg, batch)}
+    return dryrun.argument_bytes(model, specs, _one_device(), "decode")
+
+
+def _trained_bytes(arch: str, layers: int = 0) -> dict:
+    """The dry run's argument bytes of one train step of ``arch`` at
+    ``_trained_shape`` (float32 parameters + AdamW's m and v) on one
+    device, ``layers`` deep (default: the depth trained); "grads" adds
+    the float32 gradients (4 B a parameter), which the dry run leaves
+    out."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry
+    shape = _trained_shape(arch)
+    cfg = _trained_cfg(arch, layers)
+    tok = torch.empty((shape["batch"], shape["seq"]), dtype=torch.int32,
+                      device="meta")
+    out = dryrun.argument_bytes(
+        registry.build(cfg, "meta"),
+        {"tokens": tok, "labels": tok, **_extra_inputs(cfg, shape["batch"])},
+        _one_device(), "train")
+    out["grads"] = out["params"]
+    return out
 
 
 def _served_shape(arch: str):
@@ -4126,32 +4428,26 @@ def _served_shape(arch: str):
     return SERVE_PROMPT, FAMILY_CTX, 0
 
 
-def phase_dryrun_memory(device, measured: dict) -> None:
+def _hold_peaks(measured: dict):
     """The dry run against the card: the argument bytes of each config at
-    the shape, depth and dtypes this run served or trained it with must
-    not exceed the ``max_memory_allocated`` peak measured for it (a lower
-    bound above the card's own count is wrong).  Then the fit the dry run
-    predicts for each config the large path serves, at the shape served:
-    the most layers whose bytes fit the card's memory less the largest
-    peak-minus-prediction of the other paths, beside the layers served."""
-    import torch
+    the shape, depth and dtypes this run served (``_served_shape``) or
+    trained (``_trained_shape``) it with must not exceed the lowest
+    ``max_memory_allocated`` peak measured for it (a lower bound above
+    the card's own count is wrong).  Returns the margins of the budgets:
+    the largest peak - prediction of the configs served whole and of
+    gemma-7b's train, and gemma-7b's train peak less its bytes and
+    gradients."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_mesh_auto
-    from repro_torch.models import registry
     gib = 2 ** 30
-    margin = 0
+    margin = train_margin = 0
     for (arch, kind), peaks in sorted(measured.items()):
         if kind == "train":
-            cfg = _train_cfg(TRAIN_LAYERS)
-            tok = torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
-                              device="meta")
-            pred = dryrun.argument_bytes(
-                registry.build(cfg, "meta"), {"tokens": tok, "labels": tok},
-                make_mesh_auto((1, 1), ("data", "model"), device="meta"),
-                "train")
-            shape = (f"{cfg.n_layers} layers, batch {TRAIN_BATCH} x "
-                     f"{TRAIN_SEQ}, float32 params + m + v")
+            pred = _trained_bytes(arch)
+            sh = _trained_shape(arch)
+            shape = (f"{sh['layers']} layers, batch {sh['batch']} x "
+                     f"{sh['seq']}"
+                     + "".join(f", {k} {v}" for k, v in sh["extras"].items())
+                     + ", float32 params + m + v")
         else:
             prompt, ctx, layers = _served_shape(arch)
             pred = _served_bytes(arch, SERVE_BATCH, prompt, ctx, layers)
@@ -4159,8 +4455,10 @@ def phase_dryrun_memory(device, measured: dict) -> None:
                      f"{SERVE_BATCH}, prompt {prompt}, context {ctx}, "
                      f"float32 params")
         low = min(peaks)
-        if arch not in LARGE_ARCHS:
+        if arch == TRAIN_ARCH or kind == "serve" and arch not in LARGE_ARCHS:
             margin = max(margin, max(peaks) - pred["total"])
+        if (arch, kind) == (TRAIN_ARCH, "train"):
+            train_margin = max(peaks) - pred["total"] - pred["grads"]
         log(f"dry run vs card: {arch} {kind} ({shape}): argument bytes "
             f"{pred['total'] / gib:.3f} GiB (params {pred['params'] / gib:.3f}"
             f", optimizer {pred['opt_state'] / gib:.3f}, cache "
@@ -4169,9 +4467,25 @@ def phase_dryrun_memory(device, measured: dict) -> None:
             f"ratio {pred['total'] / low:.4f}")
         require(pred["total"] <= low, f"dry run: {arch} {kind} predicts "
                 f"{pred['total']} B, more than the card's peak {low} B")
-    require(len(measured) == 1 + 1 + len(FAMILY_ARCHS) + len(LARGE_ARCHS),
-            f"dry run: the card's peaks were not all measured "
-            f"({sorted(measured)})")
+    want = ({(SERVE_ARCH, "serve"), (TRAIN_ARCH, "train")}
+            | {(a, "serve") for a in FAMILY_ARCHS + LARGE_ARCHS}
+            | {(a, "train") for a in TRAIN_FAMILY_ARCHS})
+    require(set(measured) == want, f"dry run: the card's peaks were not "
+            f"all measured ({sorted(measured)})")
+    return margin, train_margin
+
+
+def phase_dryrun_memory(device, measured: dict) -> None:
+    """``_hold_peaks``; then the fit the dry run predicts at the shape
+    served for each config the large path serves (the most layers whose
+    bytes fit the card's memory less the serve margin), and at the shape
+    trained for each config the train families path trains (the most
+    layers whose bytes and float32 gradients fit the card's memory less
+    gemma-7b's train transients), beside the depth served or trained."""
+    import torch
+    from repro_torch.configs import get_config
+    gib = 2 ** 30
+    margin, train_margin = _hold_peaks(measured)
     total = torch.cuda.mem_get_info(device)[1]
     budget = total - margin
     log(f"dry run: card memory {total / gib:.2f} GiB, largest measured "
@@ -4196,13 +4510,37 @@ def phase_dryrun_memory(device, measured: dict) -> None:
             f"layer, {per / gib:.4f} GiB each further layer; the budget "
             f"predicts {fit} of {cfg.n_layers} layers; served at "
             f"{layers or cfg.n_layers}, measured peak {peak / gib:.2f} GiB")
+    budget = total - train_margin
+    log(f"dry run: card memory {total / gib:.2f} GiB, {TRAIN_ARCH}'s "
+        f"train peak - bytes - gradients {train_margin / gib:.2f} GiB, "
+        f"train budget {budget / gib:.2f} GiB")
+    for arch in TRAIN_FAMILY_ARCHS:
+        n_layers = get_config(arch).n_layers
+        full, one, two = (_trained_bytes(arch, n)
+                          for n in (n_layers, 1, 2))
+        b1, b2, bn = (b["total"] + b["grads"] for b in (one, two, full))
+        per = b2 - b1
+        require(b1 + (n_layers - 1) * per == bn, f"dry run: {arch}'s train "
+                f"bytes are not linear in its layers")
+        fit = min(n_layers, max(0, (budget - b1) // per + 1))
+        sh = _trained_shape(arch)
+        peak = max(measured[(arch, "train")])
+        log(f"dry run: {arch} train at batch {sh['batch']} x {sh['seq']}, "
+            f"float32 params, grads, m, v: {bn / gib:.2f} GiB at {n_layers} "
+            f"layers; {b1 / gib:.3f} GiB at one layer, {per / gib:.4f} GiB "
+            f"each further layer; the budget predicts {fit} of {n_layers} "
+            f"layers; trained at {sh['layers']}, measured peak "
+            f"{peak / gib:.2f} GiB (limit {TRAIN_PEAK_GIB}); one more "
+            f"layer's bytes and gradients alone would take it to "
+            f"{(peak + per) / gib:.2f} GiB")
 
 
 def phase_dryrun_path(device, measured: dict) -> dict:
     """The dry run: its CLI in subprocesses, then - kernel A's counts set
     to 0 just before and read just after - ``rng_fanout_cell`` and
     ``service_cell`` on the card; then its argument bytes against the
-    peaks the serve, train and families paths measured."""
+    peaks the serve, train, families, large and train families paths
+    measured."""
     from repro_torch.kernels import thundering_block as tb
     phase_dryrun_cli()
     tb.reset_counts()
@@ -4299,6 +4637,9 @@ def main() -> int:
                                         device, measured)
         by_path["large"] = run_phase("large path", phase_large_path, device,
                                      measured)
+        by_path["train_families"] = run_phase(
+            "train families path", phase_train_families_path, device,
+            measured)
         by_path["dryrun"] = run_phase("dryrun path", phase_dryrun_path,
                                       device, measured)
     except SmokeFailure as e:

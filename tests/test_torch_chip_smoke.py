@@ -10,17 +10,35 @@ half-of-the-rows floor alone lets pass.
 Its decode-against-forward check holds a float8 KV cache's decode against
 a forward that attends to K and V rounded as the cache stores them
 (``_KvStored``), here on qwen1.5-32b at smoke width.
+
+Its dry-run check holds each measured peak against the argument bytes of
+the config at its own served or trained shape (``_trained_shape``, on
+``meta``): a family's train peak below its own prediction fails even
+where it lies above gemma-7b's.  Its train step watch names a gradient
+leaf holding a NaN.
 """
 from __future__ import annotations
 
 import contextlib
 import importlib.util
+import types
 from pathlib import Path
 
 import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one thread while the module runs: inside the
+    suite's 6 workers on 8 cores a thread per core oversubscribes them
+    (``tests/test_torch_train.py``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -127,3 +145,93 @@ def test_a_wrong_head_mapping_in_the_float8_read_back_fails(cs, f8_cut,
     dec, full, _, _ = cs._decode_vs_forward_logits(
         cut, params, torch.device("cpu"))
     assert cs._excess(dec, full) > cs.SERVE_SLACK_ATOL
+
+
+# ---------------------------------------------------------------------------
+# the dry run's check of every train peak against its own shape
+# ---------------------------------------------------------------------------
+
+def test_trained_shape_gives_each_trained_config_its_own_shape(cs):
+    want = {"gemma_7b": (cs.TRAIN_LAYERS, 256, {}),
+            "olmoe_1b_7b": (cs.TRAIN_FAMILY_LAYERS["olmoe_1b_7b"], 256, {}),
+            "whisper_small": (12, 256, {"frames": (8, 1500, 768)}),
+            "qwen2_vl_72b": (cs.TRAIN_FAMILY_LAYERS["qwen2_vl_72b"],
+                             1024 + cs.TRAIN_VLM_TEXT,
+                             {"patches": (8, 1024, 8192)})}
+    for arch, (layers, seq, extras) in want.items():
+        assert cs._trained_shape(arch) == dict(
+            layers=layers, batch=8, seq=seq, extras=extras), arch
+    # each config's bytes at its own shape, linear in its layers
+    gemma = cs._trained_bytes("gemma_7b")["total"]
+    for arch in cs.TRAIN_FAMILY_ARCHS:
+        one, two, own = (cs._trained_bytes(arch, n)["total"]
+                         for n in (1, 2, 0))
+        assert own == one + (cs._trained_shape(arch)["layers"] - 1) * (
+            two - one) and own != gemma, arch
+
+
+def _peaks(cs, gib_over=1.0):
+    """A ``measured`` dict of every config this run serves or trains, each
+    peak ``gib_over`` GiB above the dry run's bytes at its own shape."""
+    over = int(gib_over * 2 ** 30)
+    out = {}
+    for arch in (cs.SERVE_ARCH,) + cs.FAMILY_ARCHS + cs.LARGE_ARCHS:
+        out[(arch, "serve")] = [cs._served_bytes(
+            arch, cs.SERVE_BATCH, *cs._served_shape(arch))["total"] + over]
+    for arch in (cs.TRAIN_ARCH,) + cs.TRAIN_FAMILY_ARCHS:
+        b = cs._trained_bytes(arch)
+        out[(arch, "train")] = [b["total"] + b["grads"] + over]
+    return out
+
+
+def test_every_peak_is_held_against_its_own_shape(cs):
+    margin, train_margin = cs._hold_peaks(_peaks(cs))
+    assert train_margin == 2 ** 30
+    # the serve margin: the configs served whole and gemma-7b's train
+    b = cs._trained_bytes(cs.TRAIN_ARCH)
+    assert margin == b["grads"] + 2 ** 30
+
+
+def test_a_family_train_peak_below_its_own_prediction_fails(cs):
+    measured = _peaks(cs)
+    own = cs._trained_bytes("olmoe_1b_7b")["total"]
+    # above gemma-7b's train bytes, which the check held every train peak
+    # to before, but below olmoe's own
+    assert cs._trained_bytes(cs.TRAIN_ARCH)["total"] < own - 1
+    measured[("olmoe_1b_7b", "train")] = [own - 1]
+    with pytest.raises(cs.SmokeFailure, match="olmoe_1b_7b train predicts"):
+        cs._hold_peaks(measured)
+
+
+def test_a_missing_train_peak_fails(cs):
+    measured = _peaks(cs)
+    del measured[("zamba2_7b", "train")]
+    with pytest.raises(cs.SmokeFailure, match="not all measured"):
+        cs._hold_peaks(measured)
+
+
+def test_step_watch_names_a_non_finite_gradient(cs, monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import pipeline_for, smoke_config
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw_init
+    cfg = smoke_config(get_config("mamba2_2p7b"))
+    model = registry.build(cfg, torch.device("cpu"))
+    params, _ = model.init(0)
+    batch = pipeline_for(cfg, 2, 16, 0, device="cpu").batch_at(0)
+    real = steps.value_and_grad
+
+    def poisoned(*a, **kw):
+        out, grads = real(*a, **kw)
+        grads["layers"]["a_log"][0, 3] = float("nan")
+        return out, grads
+
+    monkeypatch.setattr(steps, "value_and_grad", poisoned)
+    monkeypatch.setattr(torch.cuda, "Event", lambda **kw:
+                        types.SimpleNamespace(record=lambda: None))
+    step = steps.make_train_step(model)
+    with cs._StepWatch() as watch:
+        watch.check = True
+        step(params, adamw_init(params), batch, 0)
+    assert watch.nonfinite == ["layers/a_log"]

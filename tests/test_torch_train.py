@@ -73,6 +73,20 @@ TRAIN_KW = dict(steps=4, global_batch=2, seq_len=32, seed=1, save_every=2,
                 log_every=1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one thread while the module runs.  The suite runs
+    6 workers on 8 cores; at torch's default of a thread per core a
+    smoke-width train step waits on oversubscribed thread barriers (a
+    4-step ``train`` took 135 s inside the suite and 1.4 s alone).  Each
+    comparison is between runs under the same setting, or within a
+    tolerance."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(arch, **over):
     return (j_train.smoke_config(j_get_config(arch)).scaled(**over),
             t_train.smoke_config(t_get_config(arch)).scaled(**over))

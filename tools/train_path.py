@@ -1,20 +1,31 @@
 #!/usr/bin/env python3
-"""chip_smoke's kernel build and train path alone, on a card: the
-readings of the training substrate at full width without the rest of the
-smoke run (about 4 minutes in place of 10).
+"""One of chip_smoke's train paths alone, after the kernel build, on a
+card: its readings without the rest of the smoke run.
 
-Prints the card's name and power limit, the free disk under the checkout
-(the path's checkpoints take up to 32 GB at once), then each phase of
-``chip_smoke.phase_train_path`` - AdamW card against CPU, kernel A at the
-path's draw shapes, the smoke width on card, CPU and CLI, gemma-7b over 8
-of 28 layers through ``make_train_step`` (digests, timings, profile) and
-over 2 layers through ``train`` (resume, service, remat, checkpoints).
-Exits non-zero when a check fails or there is no card.
+``--path gemma`` (the default) runs ``chip_smoke.phase_train_path``
+(about 4 minutes of call): AdamW card against CPU, kernel A at the path's
+draw shapes, the smoke width on card, CPU and CLI, gemma-7b over 8 of 28
+layers through ``make_train_step`` (digests, timings, profile) and over
+2 layers through ``train`` (resume, service, remat, checkpoints of up to
+32 GB at once).
 
-    python3 tools/train_path.py
+``--path families`` runs ``chip_smoke.phase_train_families_path``:
+kernel A at the path's new draw shapes, ``train`` at the smoke width on
+the card against the CPU for nine configs (fail@3 resume and
+``--no-service`` on the card for five), the train CLI on mamba2, and
+olmoe-1b-7b, mamba2-2.7b, zamba2-7b, whisper-small and qwen2-vl-72b at
+published width cut to ``chip_smoke.TRAIN_FAMILY_LAYERS`` through
+``make_train_step`` (digests, step 0 checks, timings, peaks, profiles of
+olmoe and mamba2).
+
+Prints the card's name and power limit and the free disk under the
+checkout first.  Exits non-zero when a check fails or there is no card.
+
+    python3 tools/train_path.py [--path gemma|families]
 """
 from __future__ import annotations
 
+import argparse
 import shutil
 import sys
 import time
@@ -25,6 +36,10 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("gemma", "families"),
+                    default="gemma")
+    args = ap.parse_args()
     import torch
     import chip_smoke as cs
     if not torch.cuda.is_available():
@@ -38,11 +53,14 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         cs.run_phase("build", cs.phase_build)
-        cs.run_phase("train path", cs.phase_train_path,
-                     torch.device("cuda"), {})
+        phase = (cs.phase_train_path if args.path == "gemma"
+                 else cs.phase_train_families_path)
+        launches = cs.run_phase(f"{args.path} path", phase,
+                                torch.device("cuda"), {})
     except cs.SmokeFailure as e:
         print(f"train_path: FAILED: {e}", file=sys.stderr)
         return 1
+    cs.log(f"launches {launches}")
     cs.log(f"total {time.perf_counter() - t0:.1f} s")
     return 0
 
