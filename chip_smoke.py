@@ -24,7 +24,7 @@ Crush-lite battery (fast profile over every row, each cuda row against its
 torch twin; the full profile on the main delivery rows), its launch counts
 read around it.  Last the serving tier: a RandServer at the reference's
 ``make service`` width (1024 requests from 1024 tenants, with and without
-standing pools, a 16384-request backlog from 4 submitter threads), every
+standing pools, an 8192-request backlog from 4 submitter threads), every
 response of the burst held against a CPU server's plain versions, its
 journals replayed on the card, ``python -m repro_torch.service`` with
 replay and a SIGTERM drain, and a 2-shard fleet on the card at ``make
@@ -34,7 +34,7 @@ Then the model serving path (gemma-7b unmodified through
 the CPU, ``train`` at the smoke width on the card against the CPU and
 through its CLI, gemma-7b at full width over 8 of its 28 layers through
 ``make_train_step`` (two runs from one seed, equal parameter digests) and
-over 2 layers through ``train`` with its loop and checkpoints (a failure
+over 1 layer through ``train`` with its loop and checkpoints (a failure
 at step 3 resumed, the service and ``--no-service`` paths, remat on and
 off - one digest each).  Last the other model families: olmoe-1b-7b,
 granite-moe-3b-a800m, mamba2-2.7b, zamba2-7b and whisper-small served
@@ -58,6 +58,12 @@ zamba2-7b, whisper-small and qwen2-vl-72b at published width cut in
 depth (``TRAIN_FAMILY_LAYERS``) through ``make_train_step`` - two runs
 from one seed with equal parameter digests, finite step-0 gradients,
 step 0 against the unchunked loss, profiles of olmoe and mamba2 steps.
+Then the four configs trained only at smoke width so far: kernel A at
+their new draw shapes, a failure at step 3 resumed and ``--no-service``
+on the card at smoke width, and granite-moe-3b-a800m, glm4-9b,
+qwen1.5-32b and granite-34b at published width cut in depth
+(``TRAIN_LARGE_LAYERS``) through ``make_train_step`` with the same
+checks, profiles of granite-moe and qwen1.5-32b steps.
 Last the dry run: ``python -m repro_torch.launch.dryrun`` over every
 cell of both production meshes (meta tensors), and its RNG fan-out and
 service burst on the card, in subprocesses; ``rng_fanout_cell`` over
@@ -65,8 +71,8 @@ service burst on the card, in subprocesses; ``rng_fanout_cell`` over
 ``generate``); ``service_cell`` on the card against the CPU; the dry
 run's argument bytes of every config served or trained above against
 the peak memory the card measured for it, and the depth the dry run
-predicts for each config the large path serves or the train families
-path trains, beside the depth served or trained.
+predicts for each config the large path serves or the train paths
+train, beside the depth served or trained.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -1891,7 +1897,9 @@ def phase_quality_path(device) -> dict:
 #: the reference's ``make service`` width (Makefile) and its ServerConfig
 SERVICE_BURST = 1024
 SERVICE_TENANTS = 1024
-SERVICE_BACKLOG = 16384
+# a standing backlog of 8 bursts (a longer one would add to the whole
+# run's time, which has a limit)
+SERVICE_BACKLOG = 8192
 SERVICE_HOT = (("bits", "float32"), ("uniform", "float32"))
 #: the reference's ``make fleet`` width, FleetConfig defaults otherwise
 FLEET_BURST = 256
@@ -2019,7 +2027,7 @@ def phase_service(device) -> str:
     """The in-process server at ``make service`` width: the burst three
     times without pools and three times with them - the first run
     replayed on the card, the second timed, the third under the profiler
-    for the device's busy share; one digest each - then a 16384-request
+    for the device's busy share; one digest each - then an 8192-request
     backlog from 4 submitter threads into a queue of 4096, replayed, and
     once more under the profiler.  Returns the no-pool digest."""
     import shutil
@@ -2284,7 +2292,7 @@ def phase_service_path(device) -> dict:
 SERVE_ARCH = "gemma_7b"       # unmodified config: 28 layers, d 3072, V 256000
 SERVE_BATCH = 64              # the inference tier's capacity
 SERVE_PROMPT = 128
-SERVE_GEN = 32
+SERVE_GEN = 16                # tokens: the whole run's time has a limit
 SERVE_CLI_GEN = 8
 SERVE_TEMPERATURE = 0.8
 SERVE_SEED = 0
@@ -2882,9 +2890,10 @@ def phase_serve_path(device, measured: dict) -> dict:
 
 TRAIN_ARCH = "gemma_7b"       # published widths: d 3072, 16 x 256, V 256000
 # 8 of 28 layers: 3.0e9 parameters, ~48 GB of float32 params, grads, m and
-# v (all 28 would need ~137 GB); the loop-and-checkpoint runs take 2
-# layers (1.34e9 parameters, a 16 GB checkpoint)
-TRAIN_LAYERS, TRAIN_LOOP_LAYERS = 8, 2
+# v (all 28 would need ~137 GB); the loop-and-checkpoint runs take 1 layer
+# (1.06e9 parameters, a 12.7 GB checkpoint: the whole run's time has a
+# limit)
+TRAIN_LAYERS, TRAIN_LOOP_LAYERS = 8, 1
 TRAIN_BATCH, TRAIN_SEQ = 8, 256     # the reference CLI's defaults
 TRAIN_STEPS = 4
 TRAIN_SEED = 0
@@ -2949,8 +2958,9 @@ def _trained_shape(arch: str) -> dict:
     cfg = get_config(arch)
     seq = (cfg.vision_prefix + TRAIN_VLM_TEXT if cfg.vision_prefix
            else TRAIN_SEQ)
-    return dict(layers=TRAIN_LAYERS if arch == TRAIN_ARCH
-                else TRAIN_FAMILY_LAYERS[arch], batch=TRAIN_BATCH, seq=seq,
+    layers = (TRAIN_LAYERS if arch == TRAIN_ARCH else
+              {**TRAIN_FAMILY_LAYERS, **TRAIN_LARGE_LAYERS}[arch])
+    return dict(layers=layers, batch=TRAIN_BATCH, seq=seq,
                 extras={k: tuple(v.shape) for k, v in
                         _extra_inputs(cfg, TRAIN_BATCH).items()})
 
@@ -3040,32 +3050,41 @@ def phase_train_draws(device) -> None:
                         TRAIN_BATCH * (TRAIN_SEQ + 1))
 
 
+def _train_run(cfg, device, seq: int, name: str, **kw):
+    """``train`` for ``TRAIN_STEPS`` steps at ``cfg``, batch
+    ``TRAIN_BATCH`` x ``seq``, on ``device``, checkpointing every 2 steps
+    into ``TRAIN_DIR / name`` (removed before and after), ``kw`` passed
+    on.  Returns (its parameters, its losses logged every step)."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.launch.train import train
+    d = TRAIN_DIR / name
+    shutil.rmtree(d, ignore_errors=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        params, _, logged = train(
+            cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=seq,
+            ckpt_dir=str(d), save_every=2, seed=TRAIN_SEED, log_every=1,
+            device=device, **kw)
+    shutil.rmtree(d, ignore_errors=True)
+    return params, logged
+
+
 def _train_smoke(arch: str, device, seq: int, **over):
     """``train`` for ``TRAIN_STEPS`` steps at ``smoke_config(arch)``
     (scaled by ``over``), batch ``TRAIN_BATCH`` x ``seq``, on the card and
     on the CPU: losses within ``TRAIN_LOSS_ATOL`` and parameters within
     the schedule's bound of each other.  Returns (the config, the card
     run's parameters, its losses, logged every step)."""
-    import contextlib
-    import io
-    import shutil
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import smoke_config, train
+    from repro_torch.launch.train import smoke_config
     from repro_torch.models.common import flatten
     t0 = time.perf_counter()
     cfg = smoke_config(get_config(arch)).scaled(**over)
-    runs = []
-    for i, dev in enumerate((device, torch.device("cpu"))):
-        d = TRAIN_DIR / f"smoke_{arch}_{i}"
-        shutil.rmtree(d, ignore_errors=True)
-        with contextlib.redirect_stdout(io.StringIO()):
-            runs.append(train(cfg, steps=TRAIN_STEPS,
-                              global_batch=TRAIN_BATCH, seq_len=seq,
-                              ckpt_dir=str(d), save_every=2,
-                              seed=TRAIN_SEED, log_every=1, device=dev))
-        shutil.rmtree(d, ignore_errors=True)
-    (pc, _, lc), (pp, _, lp) = runs
+    (pc, lc), (pp, lp) = (
+        _train_run(cfg, dev, seq, f"smoke_{arch}_{i}")
+        for i, dev in enumerate((device, torch.device("cpu"))))
     loss_err = max(abs(a - b) for (_, a), (_, b) in zip(lc, lp))
     fc, fp = flatten(pc), flatten(pp)
     p_err = max(float((fc[k].cpu() - fp[k]).abs().max()) for k in fp)
@@ -3086,49 +3105,68 @@ def _train_smoke(arch: str, device, seq: int, **over):
     return cfg, pc, lc
 
 
-def _train_cli(arch: str, seq: int, params, losses) -> None:
+class _TrainCli:
     """``python -m repro_torch.launch.train --arch arch --smoke`` in a
-    subprocess on the card: its loss lines equal the in-process card run's
+    subprocess on the card, started on entry, so that its start-up and
+    smoke-width steps run beside the caller's untimed checks; ``check``
+    waits for it: its loss lines equal the in-process card run's
     (``_train_smoke``) and its final checkpoint holds the same parameters
-    bit for bit."""
-    import os
-    import shutil
-    import torch
-    from repro_torch.checkpoint import load_checkpoint
-    from repro_torch.models.common import flatten
-    t0 = time.perf_counter()
-    cli_dir = TRAIN_DIR / f"cli_{arch}"
-    shutil.rmtree(cli_dir, ignore_errors=True)
-    args = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-            arch, "--smoke", "--steps", str(TRAIN_STEPS),
-            "--save-every", "2", "--global-batch", str(TRAIN_BATCH),
-            "--seq-len", str(seq), "--seed", str(TRAIN_SEED),
-            "--ckpt-dir", str(cli_dir)]
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    out = subprocess.run(args, env=env, cwd=ROOT, capture_output=True,
-                         text=True, timeout=600)
-    require(out.returncode == 0, f"the train CLI ({arch}) failed: "
-            f"{out.stderr[-2000:]}")
-    cli_lines = re.findall(r"^step .*$", out.stdout, re.M)
-    # the CLI logs every 10th step and the first 3
-    want = [f"step {s:5d} loss {l:.4f}" for s, l in losses
-            if s < 3 or s % 10 == 0]
-    fc = flatten(params)
-    tree, step, _ = load_checkpoint(str(cli_dir),
-                                    device=next(iter(fc.values())).device)
-    same = all(torch.equal(flatten(tree["params"])[k].view(torch.int32),
-                           fc[k].view(torch.int32)) for k in fc)
-    shutil.rmtree(cli_dir, ignore_errors=True)
-    log(f"train CLI {arch} (subprocess): {cli_lines} == in-process "
-        f"{cli_lines == want}; step-{step} checkpoint params bit-equal to "
-        f"the in-process card run's: {same}; "
-        f"{out.stdout.strip().splitlines()[-1]}; "
-        f"{time.perf_counter() - t0:.1f} s")
-    require(cli_lines == want, f"the train CLI's loss lines ({arch}) "
-                               f"differ from the in-process run's")
-    require(step == TRAIN_STEPS and same, f"the train CLI's parameters "
-                                          f"({arch}) differ from the "
-                                          f"in-process run's")
+    bit for bit.  Exit stops it if it still runs."""
+
+    def __init__(self, arch: str, seq: int):
+        self.arch, self.seq = arch, seq
+        self.dir = TRAIN_DIR / f"cli_{arch}"
+
+    def __enter__(self):
+        import os
+        import shutil
+        shutil.rmtree(self.dir, ignore_errors=True)
+        args = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                self.arch, "--smoke", "--steps", str(TRAIN_STEPS),
+                "--save-every", "2", "--global-batch", str(TRAIN_BATCH),
+                "--seq-len", str(self.seq), "--seed", str(TRAIN_SEED),
+                "--ckpt-dir", str(self.dir)]
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(args, env=env, cwd=ROOT, text=True,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE)
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+    def check(self, params, losses) -> None:
+        import shutil
+        import torch
+        from repro_torch.checkpoint import load_checkpoint
+        from repro_torch.models.common import flatten
+        arch = self.arch
+        stdout, stderr = self.proc.communicate(timeout=600)
+        require(self.proc.returncode == 0, f"the train CLI ({arch}) failed: "
+                f"{stderr[-2000:]}")
+        cli_lines = re.findall(r"^step .*$", stdout, re.M)
+        # the CLI logs every 10th step and the first 3
+        want = [f"step {s:5d} loss {l:.4f}" for s, l in losses
+                if s < 3 or s % 10 == 0]
+        fc = flatten(params)
+        tree, step, _ = load_checkpoint(str(self.dir),
+                                        device=next(iter(fc.values())).device)
+        same = all(torch.equal(flatten(tree["params"])[k].view(torch.int32),
+                               fc[k].view(torch.int32)) for k in fc)
+        shutil.rmtree(self.dir, ignore_errors=True)
+        log(f"train CLI {arch} (subprocess): {cli_lines} == in-process "
+            f"{cli_lines == want}; step-{step} checkpoint params bit-equal "
+            f"to the in-process card run's: {same}; "
+            f"{stdout.strip().splitlines()[-1]}; "
+            f"{time.perf_counter() - self.t0:.1f} s from its start")
+        require(cli_lines == want, f"the train CLI's loss lines ({arch}) "
+                                   f"differ from the in-process run's")
+        require(step == TRAIN_STEPS and same, f"the train CLI's parameters "
+                                              f"({arch}) differ from the "
+                                              f"in-process run's")
 
 
 def _train_profile(step_fn, params, opt, batch, step, device,
@@ -3347,6 +3385,22 @@ def _require_train_peaks(measured: dict, archs) -> None:
                 f"{peak:.2f} GiB above {TRAIN_PEAK_GIB} GiB")
 
 
+def _kernel_a_launches(path: str) -> dict:
+    """Kernel A's launches since the last ``reset_counts``, on a path
+    whose kernel is kernel A alone: at least one, and no plain version run
+    on a CUDA tensor."""
+    from repro_torch.kernels import thundering_block as tb
+    launches = {"thundering_ctr": tb.thundering_ctr.launches}
+    plain_runs = (tb.thundering_ctr_plain.cuda_runs
+                  + tb.thundering_faithful_plain.cuda_runs)
+    log(f"{path} path: launches {launches}; plain versions run on the "
+        f"card: {plain_runs}")
+    require(launches["thundering_ctr"] > 0, f"kernel A never launched on "
+                                            f"the {path} path")
+    require(plain_runs == 0, "a plain version ran on a CUDA tensor")
+    return launches
+
+
 class _CheckpointMeter:
     """While active, times the checkpoint module's host snapshots, writes
     and loads (``CheckpointManager`` calls them as module globals) and
@@ -3469,30 +3523,24 @@ def phase_train_loop(device) -> None:
 def phase_train_path(device, measured: dict) -> dict:
     """The training substrate: AdamW and kernel A at the path's shapes
     against the plain versions on the CPU / card first, then the smoke
-    width on the card against the CPU and the CLI, then - kernel A's
+    width on the card against the CPU and the CLI (a subprocess started
+    first, which runs beside these checks), then - kernel A's
     counts set to 0 just before and read just after - gemma-7b at full
     width: 8 layers through ``make_train_step`` (``_train_full``, with a
-    profiled step), 2 layers through ``train`` with its loop and
+    profiled step), 1 layer through ``train`` with its loop and
     checkpoints."""
     from repro_torch.kernels import thundering_block as tb
-    phase_train_adamw(device)
-    phase_train_draws(device)
-    _, params, losses = _train_smoke(TRAIN_ARCH, device, TRAIN_SEQ)
-    _train_cli(TRAIN_ARCH, TRAIN_SEQ, params, losses)
+    with _TrainCli(TRAIN_ARCH, TRAIN_SEQ) as cli:
+        phase_train_adamw(device)
+        phase_train_draws(device)
+        _, params, losses = _train_smoke(TRAIN_ARCH, device, TRAIN_SEQ)
+        cli.check(params, losses)
     del params
     tb.reset_counts()
     _train_full(TRAIN_ARCH, device, measured, TRAIN_STEPS, profile=True)
     _require_train_peaks(measured, [TRAIN_ARCH])
     phase_train_loop(device)
-    launches = {"thundering_ctr": tb.thundering_ctr.launches}
-    plain_runs = (tb.thundering_ctr_plain.cuda_runs
-                  + tb.thundering_faithful_plain.cuda_runs)
-    log(f"train path: launches {launches}; plain versions run on the "
-        f"card: {plain_runs}")
-    require(launches["thundering_ctr"] > 0, "kernel A never launched on "
-                                            "the train path")
-    require(plain_runs == 0, "a plain version ran on a CUDA tensor")
-    return launches
+    return _kernel_a_launches("train")
 
 
 # ---------------------------------------------------------------------------
@@ -3502,7 +3550,7 @@ def phase_train_path(device, measured: dict) -> dict:
 
 FAMILY_ARCHS = ("olmoe_1b_7b", "granite_moe_3b", "mamba2_2p7b", "zamba2_7b",
                 "whisper_small")
-FAMILY_GEN = 16
+FAMILY_GEN = 8      # tokens: the whole run's time has a limit
 FAMILY_CLI_ARCH = "mamba2_2p7b"
 FAMILY_PROFILE_ARCHS = ("olmoe_1b_7b", "mamba2_2p7b")
 # decode against forward at the published width: 8 rows x 16 positions.
@@ -3702,7 +3750,7 @@ def _family_decode_vs_forward(cfg, device) -> None:
 
 def phase_families_serve(device, measured: dict) -> dict:
     """Each of ``FAMILY_ARCHS`` unmodified through ``launch.serve.serve``
-    at batch 64, prompt 128, 16 tokens, temperature 0.8 on the fused
+    at batch 64, prompt 128, 8 tokens, temperature 0.8 on the fused
     path, twice (equal tokens; olmoe also two-pass and greedy), with
     kernel A and F's counts set to 0 just before and read just after;
     then decode against forward at 2 layers of each published width.
@@ -3824,21 +3872,23 @@ def phase_families_path(device, measured: dict) -> dict:
 LARGE_ARCHS = ("glm4_9b", "qwen15_32b", "granite_34b", "qwen2_vl_72b")
 # Served at published width with float32 parameters at batch 64; glm4-9b
 # unmodified (40 of 40 layers), the other three cut in depth only, as
-# TRAIN_LAYERS cuts gemma-7b.  Each starts from the dry run's fit at the
-# shape served (28, 43 and 15 layers) and goes lower only as far as the
-# card's peak forces.  Peaks allocated of the 16-token serve alone on an
-# H100 80GB HBM3 at 700 W (tools/families_path.py --path large):
-# qwen1.5-32b 70.81 GiB, granite-34b 69.25 GiB, of the card's 79.18.
-# qwen2-vl-72b's 73,728-token prefill holds ~25 GiB beside its arguments
-# (peak - prediction 24.89 GiB; 6.75 GiB float32 attention logits per
-# 384-row query chunk at 64 heads): 9 layers peak at 67.16 GiB, and 10
-# and 11 ran out of memory
-QWEN15_LAYERS = 28      # of 64
-GRANITE_LAYERS = 43     # of 88
-QWEN2_VL_LAYERS = 9     # of 80
+# TRAIN_LAYERS cuts gemma-7b.  The deepest that fit start from the dry
+# run's fit at the shape served (28, 43 and 15 layers) and go lower only
+# as far as the card's peak forces.  Peaks allocated of the 16-token serve
+# alone on an H100 80GB HBM3 at 700 W (tools/families_path.py --path
+# large): qwen1.5-32b 70.81 GiB at 28 layers, granite-34b 69.25 GiB at 43,
+# of the card's 79.18.  qwen2-vl-72b's 73,728-token prefill holds ~25 GiB
+# beside its arguments (peak - prediction 24.89 GiB; 6.75 GiB float32
+# attention logits per 384-row query chunk at 64 heads): 9 layers peak at
+# 67.16 GiB, and 10 and 11 ran out of memory.  The path serves about half
+# of each of those depths (and 8 tokens, not 16) to keep the whole run
+# inside its time limit
+QWEN15_LAYERS = 14      # of 64; 28 fit
+GRANITE_LAYERS = 21     # of 88; 43 fit
+QWEN2_VL_LAYERS = 5     # of 80; 9 fit
 LARGE_LAYERS = {"qwen15_32b": QWEN15_LAYERS, "granite_34b": GRANITE_LAYERS,
                 "qwen2_vl_72b": QWEN2_VL_LAYERS}
-LARGE_GEN = 16
+LARGE_GEN = 8
 LARGE_TWOPASS_ARCH = "qwen2_vl_72b"
 LARGE_PROFILE_ARCHS = ("qwen15_32b", "qwen2_vl_72b")
 # smoke width keeps the vlm's 1024-position patch prefix, longer than the
@@ -3930,7 +3980,7 @@ def phase_large_f8_cast(device) -> None:
 def phase_large_serve(device, measured: dict, f_ms: dict) -> dict:
     """Each of ``LARGE_ARCHS`` at its served depth through
     ``launch.serve.serve`` at batch 64, its prompt (``_large_prompt``),
-    16 tokens, temperature 0.8 on the fused path, twice (equal tokens;
+    8 tokens, temperature 0.8 on the fused path, twice (equal tokens;
     qwen2-vl-72b also two-pass - the same tokens - and greedy), with
     kernel A and F's counts set to 0 just before and read just after;
     then decode against forward at 2 layers of each published width.
@@ -4057,9 +4107,9 @@ def phase_large_path(device, measured: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the train families path: one config of each family the train path does
-# not train, at published width cut in depth, through make_train_step and
-# train
+# the train families and train large paths: one config of each family the
+# train path does not train, then the four published configs left, at
+# published width cut in depth, through make_train_step and train
 # ---------------------------------------------------------------------------
 
 TRAIN_FAMILY_ARCHS = ("olmoe_1b_7b", "mamba2_2p7b", "whisper_small",
@@ -4073,50 +4123,83 @@ TRAIN_FAMILY_ARCHS = ("olmoe_1b_7b", "mamba2_2p7b", "whisper_small",
 # families and chip_smoke.py):
 TRAIN_FAMILY_LAYERS = {
     "olmoe_1b_7b": 9,       # of 16: 67.09 GiB; 10 ran out of memory
-    "mamba2_2p7b": 64,      # of 64: 44.23 GiB
+    # of 64: all 64 fit (44.23 GiB); 16 keep the whole run inside its time
+    # limit
+    "mamba2_2p7b": 16,
     "whisper_small": 12,    # of 12 (+ 12 encoder layers): 5.41 GiB
     # of 80: 68.24 GiB; a third layer's bytes and gradients alone add
     # 13.08 GiB
     "qwen2_vl_72b": 2,
-    # of 81: 71.67 GiB (7 applications of the shared block and 5 layers
-    # after them); a 48th layer's bytes and gradients alone add 1.16 GiB
-    "zamba2_7b": 47,
+    # of 81: 47 fit (71.67 GiB; a 48th layer's bytes and gradients alone
+    # add 1.16 GiB); 12 (2 applications of the shared block) keep the
+    # whole run inside its time limit
+    "zamba2_7b": 12,
+}
+# The four published configs the families path trains only at smoke
+# width, trained as those above, from the dry run's train budget fit (32,
+# 18, 6 and 11 layers), lower only as far as the measured peak must stay
+# under TRAIN_PEAK_GIB.  Peaks allocated on an H100 80GB HBM3 at 700 W
+# (tools/train_path.py --path large and chip_smoke.py); "+ x" is what one
+# more layer's bytes and gradients alone add:
+TRAIN_LARGE_ARCHS = ("granite_moe_3b", "glm4_9b", "qwen15_32b",
+                     "granite_34b")
+TRAIN_LARGE_LAYERS = {
+    "granite_moe_3b": 32,   # of 32: 59.88 GiB
+    "glm4_9b": 16,          # of 40: 70.54 GiB, + 3.04 GiB
+    "qwen15_32b": 5,        # of 64: 65.34 GiB, + 7.83 GiB
+    # of 88: 65.44 GiB, + 5.65 GiB; 10 layers ran out of memory (a 5.62
+    # GiB allocation beside 66.02 allocated and 7.01 reserved but free)
+    "granite_34b": 9,
 }
 TRAIN_FAMILY_STEPS = 3
 # a vlm trains on its 1024-position patch prefix + 128 text positions
 TRAIN_VLM_TEXT = 128
 TRAIN_FAMILY_PROFILE = ("olmoe_1b_7b", "mamba2_2p7b")
-# card against CPU through train at the smoke width: the five, the other
-# MoE and the three large dense configs
-TRAIN_SMOKE_ARCHS = TRAIN_FAMILY_ARCHS + ("granite_moe_3b", "glm4_9b",
-                                          "qwen15_32b", "granite_34b")
+TRAIN_LARGE_PROFILE = ("granite_moe_3b", "qwen15_32b")
+# card against CPU through train at the smoke width: the five families
+# and the four above
+TRAIN_SMOKE_ARCHS = TRAIN_FAMILY_ARCHS + TRAIN_LARGE_ARCHS
 TRAIN_SMOKE_SEQ = 64
 TRAIN_CLI_ARCH = "mamba2_2p7b"
 
 
-def phase_train_families_draws(device) -> None:
-    """Kernel A against its plain version, bit for bit, at the draw shapes
-    this path reaches first: the ragged last 2**28 chunk of the largest
-    stacked matrix of olmoe-1b-7b (its experts), mamba2-2.7b and zamba2-7b
-    (their SSD input projections) at the depths trained and the first
-    chunk of the largest of them, and the uniforms under the vlm's (8,
-    1024, 8192) patches and whisper's (8, 1500, 768) frames of
-    ``pipeline_for(...).batch_at(0)``."""
-    import math
-    from repro_torch.core import stream as tstream
-    from repro_torch.launch.train import pipeline_for
+def _largest_stacked(arch: str):
+    """(elements, path) of ``arch``'s largest stacked per-layer parameter
+    (under ``layers/``, or an encdec's ``enc_layers/`` and
+    ``dec_layers/``) at the depth trained; of equal sizes, the last path
+    in sorted order."""
     from repro_torch.models import registry
     from repro_torch.models.common import flatten
+    shapes = flatten(registry.build(_trained_cfg(arch), "meta")
+                     .init(TRAIN_SEED)[0])
+    return max((t.numel(), p) for p, t in shapes.items()
+               if p.split("/")[0].endswith("layers"))
+
+
+def _stacked_chunk_draws(archs, device) -> None:
+    """Kernel A against its plain version, bit for bit, at the ragged last
+    2**28 chunk of the largest stacked matrix of each of ``archs`` at the
+    depth trained, and at the first chunk of the largest of them."""
     largest = []
-    for arch in ("olmoe_1b_7b", "mamba2_2p7b", "zamba2_7b"):
-        cfg = _trained_cfg(arch)
-        shapes = flatten(registry.build(cfg, "meta").init(TRAIN_SEED)[0])
-        n, path = max((t.numel(), p) for p, t in shapes.items()
-                      if p.startswith("layers/"))
-        _param_chunk_draw(cfg, path, -1, device)
+    for arch in archs:
+        n, path = _largest_stacked(arch)
+        _param_chunk_draw(_trained_cfg(arch), path, -1, device)
         largest.append((n, path, arch))
     _, path, arch = max(largest)
     _param_chunk_draw(_trained_cfg(arch), path, 0, device)
+
+
+def phase_train_families_draws(device) -> None:
+    """Kernel A against its plain version, bit for bit, at the draw shapes
+    this path reaches first: the chunks of the largest stacked matrix of
+    olmoe-1b-7b (its experts), mamba2-2.7b and zamba2-7b (their SSD input
+    projections) at the depths trained (``_stacked_chunk_draws``), and the
+    uniforms under the vlm's (8, 1024, 8192) patches and whisper's (8,
+    1500, 768) frames of ``pipeline_for(...).batch_at(0)``."""
+    import math
+    from repro_torch.core import stream as tstream
+    from repro_torch.launch.train import pipeline_for
+    _stacked_chunk_draws(("olmoe_1b_7b", "mamba2_2p7b", "zamba2_7b"), device)
     for arch in ("qwen2_vl_72b", "whisper_small"):
         shape = _trained_shape(arch)
         pipe = pipeline_for(_trained_cfg(arch), shape["batch"], shape["seq"],
@@ -4127,35 +4210,27 @@ def phase_train_families_draws(device) -> None:
                             math.prod(dims))
 
 
-def _train_resume(arch: str, device, seq: int, cfg, params, losses) -> None:
+def _train_resume(arch: str, device, seq: int, cfg, clean) -> None:
     """``train`` at the smoke width on the card with a failure at step 3
     (resumed from step 2's checkpoint) and with ``use_service=False``:
-    parameters bit-equal to the uninterrupted run's (``_train_smoke``),
-    every loss equal."""
-    import contextlib
-    import io
-    import shutil
-    from repro_torch.launch.train import train
+    parameters bit-equal to the uninterrupted card run ``clean`` =
+    (parameters, losses), as ``_train_run`` gives them, every loss
+    equal."""
     t0 = time.perf_counter()
-    digests, logged = {"clean": _tree_digest(params)}, {}
+    runs = {"clean": clean}
     for name, kw in (("fail@3", dict(fail_at=3)),
                      ("no-service", dict(use_service=False))):
-        d = TRAIN_DIR / f"{arch}_{name.replace('@', '_')}"
-        shutil.rmtree(d, ignore_errors=True)
-        with contextlib.redirect_stdout(io.StringIO()):
-            p, _, logged[name] = train(
-                cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
-                seq_len=seq, ckpt_dir=str(d), save_every=2, seed=TRAIN_SEED,
-                log_every=1, device=device, **kw)
-        shutil.rmtree(d, ignore_errors=True)
-        digests[name] = _tree_digest(p)
+        runs[name] = _train_run(cfg, device, seq,
+                                f"{arch}_{name.replace('@', '_')}", **kw)
+    digests = {k: _tree_digest(p) for k, (p, _) in runs.items()}
+    logged = {k: losses for k, (_, losses) in runs.items()}
     log(f"train resume {arch} on the card: params sha256 "
         f"{ {k: v[:16] for k, v in digests.items()} }; fail@3 logged steps "
         f"{[s for s, _ in logged['fail@3']]}; "
         f"{time.perf_counter() - t0:.1f} s")
     require(len(set(digests.values())) == 1, f"train resume {arch}: "
             f"digests differ")
-    require(dict(logged["fail@3"]) == dict(losses)
+    require(dict(logged["fail@3"]) == dict(logged["clean"])
             == dict(logged["no-service"]), f"train resume {arch}: losses "
                                            f"differ")
     require([s for s, _ in logged["fail@3"]] == [0, 1, 2, 2, 3],
@@ -4167,35 +4242,59 @@ def phase_train_families_path(device, measured: dict) -> dict:
     shapes against the plain version; (b) ``train`` at the smoke width on
     the card against the CPU for ``TRAIN_SMOKE_ARCHS``, and for the five
     families a failure at step 3 resumed and ``--no-service`` on the card,
-    one digest each; (c) the train CLI on mamba2 in a subprocess; then -
-    kernel A's counts set to 0 just before and read just after - (d) each
+    one digest each; (c) the train CLI on mamba2 in a subprocess started
+    first, which runs beside (a) and (b); then - kernel A's counts set to
+    0 just before and read just after - (d) each
     of ``TRAIN_FAMILY_ARCHS`` at published width cut to
     ``TRAIN_FAMILY_LAYERS`` through ``make_train_step`` (``_train_full``),
     olmoe and mamba2 with a profiled step."""
     from repro_torch.kernels import thundering_block as tb
-    phase_train_families_draws(device)
-    for arch in TRAIN_SMOKE_ARCHS:
-        cfg, params, losses = _train_smoke(arch, device, TRAIN_SMOKE_SEQ,
-                                           **LARGE_SMOKE.get(arch, {}))
-        if arch in TRAIN_FAMILY_ARCHS:
-            _train_resume(arch, device, TRAIN_SMOKE_SEQ, cfg, params, losses)
-        if arch == TRAIN_CLI_ARCH:
-            _train_cli(arch, TRAIN_SMOKE_SEQ, params, losses)
-        del params
+    with _TrainCli(TRAIN_CLI_ARCH, TRAIN_SMOKE_SEQ) as cli:
+        phase_train_families_draws(device)
+        for arch in TRAIN_SMOKE_ARCHS:
+            cfg, params, losses = _train_smoke(arch, device, TRAIN_SMOKE_SEQ,
+                                               **LARGE_SMOKE.get(arch, {}))
+            if arch in TRAIN_FAMILY_ARCHS:
+                _train_resume(arch, device, TRAIN_SMOKE_SEQ, cfg,
+                              (params, losses))
+            if arch == TRAIN_CLI_ARCH:
+                cli_run = params, losses
+            del params
+        cli.check(*cli_run)
+        del cli_run
     tb.reset_counts()
     for arch in TRAIN_FAMILY_ARCHS:
         _train_full(arch, device, measured, TRAIN_FAMILY_STEPS,
                     profile=arch in TRAIN_FAMILY_PROFILE)
     _require_train_peaks(measured, TRAIN_FAMILY_ARCHS)
-    launches = {"thundering_ctr": tb.thundering_ctr.launches}
-    plain_runs = (tb.thundering_ctr_plain.cuda_runs
-                  + tb.thundering_faithful_plain.cuda_runs)
-    log(f"train families path: launches {launches}; plain versions run on "
-        f"the card: {plain_runs}")
-    require(launches["thundering_ctr"] > 0, "kernel A never launched on "
-                                            "the train families path")
-    require(plain_runs == 0, "a plain version ran on a CUDA tensor")
-    return launches
+    return _kernel_a_launches("train families")
+
+
+def phase_train_large_path(device, measured: dict) -> dict:
+    """The four configs the families path trains only at smoke width:
+    (a) kernel A against its plain version at the chunks of their largest
+    stacked matrices at the depths trained (``_stacked_chunk_draws``); (b)
+    ``train`` at the smoke width on the card, uninterrupted, with a
+    failure at step 3 resumed and with ``--no-service``, one digest each;
+    then - kernel A's counts set to 0 just before and read just after -
+    (c) each of ``TRAIN_LARGE_ARCHS`` at published width cut to
+    ``TRAIN_LARGE_LAYERS`` through ``make_train_step`` (``_train_full``),
+    granite-moe and qwen1.5-32b with a profiled step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import thundering_block as tb
+    from repro_torch.launch.train import smoke_config
+    _stacked_chunk_draws(TRAIN_LARGE_ARCHS, device)
+    for arch in TRAIN_LARGE_ARCHS:
+        cfg = smoke_config(get_config(arch))
+        _train_resume(arch, device, TRAIN_SMOKE_SEQ, cfg,
+                      _train_run(cfg, device, TRAIN_SMOKE_SEQ,
+                                 f"{arch}_clean"))
+    tb.reset_counts()
+    for arch in TRAIN_LARGE_ARCHS:
+        _train_full(arch, device, measured, TRAIN_FAMILY_STEPS,
+                    profile=arch in TRAIN_LARGE_PROFILE)
+    _require_train_peaks(measured, TRAIN_LARGE_ARCHS)
+    return _kernel_a_launches("train large")
 
 
 # ---------------------------------------------------------------------------
@@ -4469,7 +4568,7 @@ def _hold_peaks(measured: dict):
                 f"{pred['total']} B, more than the card's peak {low} B")
     want = ({(SERVE_ARCH, "serve"), (TRAIN_ARCH, "train")}
             | {(a, "serve") for a in FAMILY_ARCHS + LARGE_ARCHS}
-            | {(a, "train") for a in TRAIN_FAMILY_ARCHS})
+            | {(a, "train") for a in TRAIN_FAMILY_ARCHS + TRAIN_LARGE_ARCHS})
     require(set(measured) == want, f"dry run: the card's peaks were not "
             f"all measured ({sorted(measured)})")
     return margin, train_margin
@@ -4479,9 +4578,13 @@ def phase_dryrun_memory(device, measured: dict) -> None:
     """``_hold_peaks``; then the fit the dry run predicts at the shape
     served for each config the large path serves (the most layers whose
     bytes fit the card's memory less the serve margin), and at the shape
-    trained for each config the train families path trains (the most
-    layers whose bytes and float32 gradients fit the card's memory less
-    gemma-7b's train transients), beside the depth served or trained."""
+    trained for each config the train families and train large paths
+    train (the most layers whose bytes and float32 gradients fit the
+    card's memory less gemma-7b's train transients), beside the depth
+    served or trained, and its transient (the measured peak less the bytes
+    and gradients at that depth) beside the float32 bytes of its largest
+    stacked leaf, which the per-layer zero-filled stacked gradient holds
+    (ROADMAP B8)."""
     import torch
     from repro_torch.configs import get_config
     gib = 2 ** 30
@@ -4514,17 +4617,19 @@ def phase_dryrun_memory(device, measured: dict) -> None:
     log(f"dry run: card memory {total / gib:.2f} GiB, {TRAIN_ARCH}'s "
         f"train peak - bytes - gradients {train_margin / gib:.2f} GiB, "
         f"train budget {budget / gib:.2f} GiB")
-    for arch in TRAIN_FAMILY_ARCHS:
+    for arch in TRAIN_FAMILY_ARCHS + TRAIN_LARGE_ARCHS:
         n_layers = get_config(arch).n_layers
-        full, one, two = (_trained_bytes(arch, n)
-                          for n in (n_layers, 1, 2))
-        b1, b2, bn = (b["total"] + b["grads"] for b in (one, two, full))
+        full, one, two, own = (_trained_bytes(arch, n)
+                               for n in (n_layers, 1, 2, 0))
+        b1, b2, bn, bo = (b["total"] + b["grads"]
+                          for b in (one, two, full, own))
         per = b2 - b1
         require(b1 + (n_layers - 1) * per == bn, f"dry run: {arch}'s train "
                 f"bytes are not linear in its layers")
         fit = min(n_layers, max(0, (budget - b1) // per + 1))
         sh = _trained_shape(arch)
         peak = max(measured[(arch, "train")])
+        n_big, path = _largest_stacked(arch)
         log(f"dry run: {arch} train at batch {sh['batch']} x {sh['seq']}, "
             f"float32 params, grads, m, v: {bn / gib:.2f} GiB at {n_layers} "
             f"layers; {b1 / gib:.3f} GiB at one layer, {per / gib:.4f} GiB "
@@ -4532,28 +4637,23 @@ def phase_dryrun_memory(device, measured: dict) -> None:
             f"layers; trained at {sh['layers']}, measured peak "
             f"{peak / gib:.2f} GiB (limit {TRAIN_PEAK_GIB}); one more "
             f"layer's bytes and gradients alone would take it to "
-            f"{(peak + per) / gib:.2f} GiB")
+            f"{(peak + per) / gib:.2f} GiB; transient (peak - bytes - "
+            f"gradients) {(peak - bo) / gib:.2f} GiB beside its largest "
+            f"stacked leaf {path} {n_big * 4 / gib:.2f} GiB in float32")
 
 
 def phase_dryrun_path(device, measured: dict) -> dict:
     """The dry run: its CLI in subprocesses, then - kernel A's counts set
     to 0 just before and read just after - ``rng_fanout_cell`` and
     ``service_cell`` on the card; then its argument bytes against the
-    peaks the serve, train, families, large and train families paths
-    measured."""
+    peaks the serve, train, families, large, train families and train
+    large paths measured."""
     from repro_torch.kernels import thundering_block as tb
     phase_dryrun_cli()
     tb.reset_counts()
     phase_dryrun_fanout(device)
     phase_dryrun_service(device)
-    launches = {"thundering_ctr": tb.thundering_ctr.launches}
-    plain_runs = (tb.thundering_ctr_plain.cuda_runs
-                  + tb.thundering_faithful_plain.cuda_runs)
-    log(f"dryrun path: launches {launches}; plain versions run on the "
-        f"card: {plain_runs}")
-    require(launches["thundering_ctr"] > 0, "kernel A never launched on "
-                                            "the dryrun path")
-    require(plain_runs == 0, "a plain version ran on a CUDA tensor")
+    launches = _kernel_a_launches("dryrun")
     phase_dryrun_memory(device, measured)
     return launches
 
@@ -4640,6 +4740,8 @@ def main() -> int:
         by_path["train_families"] = run_phase(
             "train families path", phase_train_families_path, device,
             measured)
+        by_path["train_large"] = run_phase(
+            "train large path", phase_train_large_path, device, measured)
         by_path["dryrun"] = run_phase("dryrun path", phase_dryrun_path,
                                       device, measured)
     except SmokeFailure as e:

@@ -14,8 +14,9 @@ a forward that attends to K and V rounded as the cache stores them
 Its dry-run check holds each measured peak against the argument bytes of
 the config at its own served or trained shape (``_trained_shape``, on
 ``meta``): a family's train peak below its own prediction fails even
-where it lies above gemma-7b's.  Its train step watch names a gradient
-leaf holding a NaN.
+where it lies above gemma-7b's, and every one of the ten configs the
+train paths train needs a depth within its own and a measured peak.  Its
+train step watch names a gradient leaf holding a NaN.
 """
 from __future__ import annotations
 
@@ -170,6 +171,23 @@ def test_trained_shape_gives_each_trained_config_its_own_shape(cs):
             two - one) and own != gemma, arch
 
 
+def test_every_trained_config_has_a_depth_and_a_held_peak(cs):
+    from repro_torch.configs import get_config
+    trained = (cs.TRAIN_ARCH,) + cs.TRAIN_FAMILY_ARCHS + cs.TRAIN_LARGE_ARCHS
+    assert len(set(trained)) == 10
+    for arch in trained:
+        assert 1 <= cs._trained_shape(arch)["layers"] <= \
+            get_config(arch).n_layers, arch
+    # _hold_peaks requires a train peak of each of the ten
+    full = _peaks(cs)
+    assert {a for a, kind in full if kind == "train"} == set(trained)
+    for arch in trained:
+        measured = dict(full)
+        del measured[(arch, "train")]
+        with pytest.raises(cs.SmokeFailure, match="not all measured"):
+            cs._hold_peaks(measured)
+
+
 def _peaks(cs, gib_over=1.0):
     """A ``measured`` dict of every config this run serves or trains, each
     peak ``gib_over`` GiB above the dry run's bytes at its own shape."""
@@ -178,7 +196,8 @@ def _peaks(cs, gib_over=1.0):
     for arch in (cs.SERVE_ARCH,) + cs.FAMILY_ARCHS + cs.LARGE_ARCHS:
         out[(arch, "serve")] = [cs._served_bytes(
             arch, cs.SERVE_BATCH, *cs._served_shape(arch))["total"] + over]
-    for arch in (cs.TRAIN_ARCH,) + cs.TRAIN_FAMILY_ARCHS:
+    for arch in (cs.TRAIN_ARCH,) + cs.TRAIN_FAMILY_ARCHS + \
+            cs.TRAIN_LARGE_ARCHS:
         b = cs._trained_bytes(arch)
         out[(arch, "train")] = [b["total"] + b["grads"] + over]
     return out

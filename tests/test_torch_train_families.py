@@ -2,7 +2,9 @@
 ``launch.train.train``) against the reference's, on the CPU: the configs
 ``tests/test_torch_train.py`` leaves out of its gradient check (the vlm
 behind its patch prefix, MQA with plain GELU, qkv bias), and a failure
-resumed bit for bit in one config of each family.
+resumed bit for bit in one config of each family and in the four
+published configs trained only in depth-cut form on the card, and the MoE
+gradients at granite-moe-3b-a800m's own 40-expert, top-8 routing.
 (``tests/test_torch_train_extras.py`` holds ``train``'s losses with the
 ``frames`` / ``patches`` extras against the reference's.)
 
@@ -18,13 +20,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import stream as j_stream
 from repro.launch import train as j_train
+from repro.models import moe as j_moe
 from repro.models import registry as j_registry
 from repro_torch.core import stream as t_stream
 from repro_torch.launch import steps as t_steps
 from repro_torch.launch import train as t_train
+from repro_torch.models import moe as t_moe
 from repro_torch.models import registry as t_registry
 from repro_torch.models.common import unflatten
 
@@ -79,7 +84,9 @@ def test_loss_and_gradients_match_reference(arch, seq):
 
 
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "mamba2_2p7b", "zamba2_7b",
-                                  "whisper_small", "qwen2_vl_72b"])
+                                  "whisper_small", "qwen2_vl_72b",
+                                  "granite_moe_3b", "glm4_9b", "qwen15_32b",
+                                  "granite_34b"])
 def test_train_resumes_bit_identically_after_failure(arch, tmp_path):
     _, tc = _cfgs(arch, **OVER.get(arch, {}))
     p1, o1, l1 = t_train.train(tc, ckpt_dir=str(tmp_path / "a"), fail_at=3,
@@ -91,3 +98,43 @@ def test_train_resumes_bit_identically_after_failure(arch, tmp_path):
     assert int(o1.step) == int(o2.step) == TRAIN_KW["steps"]
     assert [s for s, _ in l1] == [0, 1, 2, 2, 3]      # resumed at step 2
     assert dict(l1) == dict(l2)
+
+
+def test_moe_gradients_at_granite_moe_published_routing():
+    """granite-moe-3b-a800m's own routing - 40 experts, top-8, capacity
+    factor 1.25, ``moe_group`` 512 - on the train batch of 8 x 256 tokens
+    (32 groups of 64, as ``_group_size`` keeps 32 groups), at a narrow
+    width (d 128, d_ff 32), with the router jitter on: the gradients of
+    sum(y * r) + aux through the port's ``moe_mlp`` against the
+    reference's, at the tolerance above.  The smoke config the other tests
+    use has 8 experts, top-2."""
+    jc, tc = (c.scaled(n_experts=40, top_k=8, moe_group=512, d_ff=32)
+              for c in _cfgs("granite_moe_3b"))
+    B, S, D, E, Fd = 8, 256, tc.d_model, tc.n_experts, tc.d_ff
+    assert t_moe._group_size(B * S, want=tc.moe_group) == 64
+    rng = np.random.default_rng(24)
+    h = rng.normal(0, 1, (B, S, D)).astype(np.float32)
+    ws = [rng.normal(0, s, shape).astype(np.float32)
+          for s, shape in [(0.5, (D, E)), (0.2, (E, D, Fd)),
+                           (0.2, (E, D, Fd)), (0.2, (E, Fd, D))]]
+    r = rng.normal(0, 1, h.shape).astype(np.float32)
+    jrng = j_stream.new_stream(9, 0)
+
+    def j_loss(h, *w):
+        y, aux = j_moe.moe_mlp(jc, h, *w, jrng)
+        return jnp.sum(y.astype(jnp.float32) * r) + aux
+
+    want = jax.jit(jax.grad(j_loss, argnums=tuple(range(5))))(
+        jnp.asarray(h, jnp.bfloat16), *[jnp.asarray(w) for w in ws])
+    targs = [torch.from_numpy(h).bfloat16().requires_grad_()] + \
+        [torch.from_numpy(w).requires_grad_() for w in ws]
+    y, aux = t_moe.moe_mlp(tc, *targs, t_stream.new_stream(9, 0, device=CPU))
+    (torch.sum(y.float() * torch.from_numpy(r)) + aux).backward()
+    for t, w in zip(targs, want):
+        g = t.grad.float().numpy().astype(np.float64)
+        w = np.asarray(w, np.float32).astype(np.float64)
+        assert g.shape == w.shape
+        d = g - w
+        assert np.abs(d).max() <= GRAD_MAX_REL * np.abs(w).max()
+        assert np.sqrt(np.mean(d ** 2)) <= GRAD_RMS_REL * np.sqrt(
+            np.mean(w ** 2))

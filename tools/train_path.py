@@ -6,8 +6,8 @@ card: its readings without the rest of the smoke run.
 (about 4 minutes of call): AdamW card against CPU, kernel A at the path's
 draw shapes, the smoke width on card, CPU and CLI, gemma-7b over 8 of 28
 layers through ``make_train_step`` (digests, timings, profile) and over
-2 layers through ``train`` (resume, service, remat, checkpoints of up to
-32 GB at once).
+1 layer through ``train`` (resume, service, remat, checkpoints of up to
+~25 GB at once).
 
 ``--path families`` runs ``chip_smoke.phase_train_families_path``:
 kernel A at the path's new draw shapes, ``train`` at the smoke width on
@@ -18,10 +18,18 @@ published width cut to ``chip_smoke.TRAIN_FAMILY_LAYERS`` through
 ``make_train_step`` (digests, step 0 checks, timings, peaks, profiles of
 olmoe and mamba2).
 
+``--path large`` runs ``chip_smoke.phase_train_large_path``: kernel A at
+the chunks of the largest stacked matrices at the depths trained, fail@3
+resume and ``--no-service`` at the smoke width on the card, and
+granite-moe-3b-a800m, glm4-9b, qwen1.5-32b and granite-34b at published
+width cut to ``chip_smoke.TRAIN_LARGE_LAYERS`` through
+``make_train_step`` (digests, step 0 checks, timings, peaks, profiles of
+granite-moe and qwen1.5-32b).
+
 Prints the card's name and power limit and the free disk under the
 checkout first.  Exits non-zero when a check fails or there is no card.
 
-    python3 tools/train_path.py [--path gemma|families]
+    python3 tools/train_path.py [--path gemma|families|large]
 """
 from __future__ import annotations
 
@@ -37,7 +45,7 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("gemma", "families"),
+    ap.add_argument("--path", choices=("gemma", "families", "large"),
                     default="gemma")
     args = ap.parse_args()
     import torch
@@ -53,8 +61,9 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         cs.run_phase("build", cs.phase_build)
-        phase = (cs.phase_train_path if args.path == "gemma"
-                 else cs.phase_train_families_path)
+        phase = {"gemma": cs.phase_train_path,
+                 "families": cs.phase_train_families_path,
+                 "large": cs.phase_train_large_path}[args.path]
         launches = cs.run_phase(f"{args.path} path", phase,
                                 torch.device("cuda"), {})
     except cs.SmokeFailure as e:
