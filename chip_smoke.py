@@ -568,12 +568,12 @@ def _count_host_jumps():
 def phase_main_path(device) -> dict:
     """The port's main path at full size, through the user entry points."""
     import torch
+    from repro_torch import trace
     from repro_torch.core import engine, stream
-    from repro_torch.kernels import thundering_block as tb
     from repro_torch.runtime.blocks import BlockService
 
     host_jumps = _count_host_jumps()
-    tb.reset_counts()
+    trace.reset_counters("thundering_")
     t0 = time.perf_counter()
     base = engine.make_plan(seed=SEED, num_streams=S_FULL, num_steps=T_FULL,
                             device=device)
@@ -617,10 +617,10 @@ def phase_main_path(device) -> dict:
     sync(device)
     main_s = time.perf_counter() - t0
 
-    launches = {"thundering_ctr": tb.thundering_ctr.launches,
-                "thundering_faithful": tb.thundering_faithful.launches}
-    plain_runs = (tb.thundering_ctr_plain.cuda_runs
-                  + tb.thundering_faithful_plain.cuda_runs)
+    launches = {k: trace.counter(f"{k}.launches")
+                for k in ("thundering_ctr", "thundering_faithful")}
+    plain_runs = (trace.counter("thundering_ctr_plain.cuda_runs")
+                  + trace.counter("thundering_faithful_plain.cuda_runs"))
     host_jumps = host_jumps()
     log(f"main path: {main_s:.2f} s wall; launches {launches}; plain "
         f"versions run on the card: {plain_runs}; host GF(2) jumps: "
@@ -1019,9 +1019,9 @@ def phase_apps(device) -> dict:
     lease."""
     import math
     import torch
+    from repro_torch import trace
     from repro_torch.core import engine, stream
     from repro_torch.kernels import fused_dropout as fd, mc, ops, ref
-    from repro_torch.kernels import thundering_block as tb
     from repro_torch.runtime import blocks
     from repro_torch.runtime.blocks import BlockService
 
@@ -1037,9 +1037,8 @@ def phase_apps(device) -> dict:
     n_drop = xs[torch.float32].numel()
     sync(device)
 
-    tb.reset_counts()
-    mc.reset_counts()
-    fd.reset_counts()
+    trace.reset_counters(("thundering_", "pi_partials", "option_partials",
+                          "fused_dropout_2d"))
     t0 = time.perf_counter()
     kw = dict(seed=SEED, num_lanes=APP_LANES, draws_per_lane=APP_DRAWS)
     pi = ops.estimate_pi(**kw)
@@ -1059,14 +1058,14 @@ def phase_apps(device) -> dict:
     lease.commit()
     sync(device)
     wall = time.perf_counter() - t0
-    launches = {"pi_partials": mc.pi_partials.launches,
-                "option_partials": mc.option_partials.launches,
-                "fused_dropout_2d": fd.fused_dropout_2d.launches}
-    plain_runs = (mc.pi_partials_plain.cuda_runs
-                  + mc.option_partials_plain.cuda_runs
-                  + fd.fused_dropout_2d_plain.cuda_runs
-                  + tb.thundering_ctr_plain.cuda_runs
-                  + tb.thundering_faithful_plain.cuda_runs)
+    launches = {"pi_partials": trace.counter("pi_partials.launches"),
+                "option_partials": trace.counter("option_partials.launches"),
+                "fused_dropout_2d": trace.counter("fused_dropout_2d.launches")}
+    plain_runs = (trace.counter("pi_partials_plain.cuda_runs")
+                  + trace.counter("option_partials_plain.cuda_runs")
+                  + trace.counter("fused_dropout_2d_plain.cuda_runs")
+                  + trace.counter("thundering_ctr_plain.cuda_runs")
+                  + trace.counter("thundering_faithful_plain.cuda_runs"))
     log(f"apps path: {wall:.2f} s wall; launches {launches}; plain versions "
         f"run on the card: {plain_runs}")
     require(all(v > 0 for v in launches.values()),
@@ -1392,19 +1391,15 @@ def phase_inference(device) -> dict:
     subprocess against the fault-free digest."""
     import os
     import shutil
+    from repro_torch import trace
     from repro_torch.inference import ScheduleConfig, run_offline
-    from repro_torch.inference.kernels import gumbel_argmax as ga
-    from repro_torch.kernels import fused_dropout as fd, mc
-    from repro_torch.kernels import thundering_block as tb
     base = ScheduleConfig(capacity=64, vocab=INF_VOCAB,
                           sequences=INF_SEQUENCES, rate=8.0, seed=0)
     # warm-up: first-call costs (the library load, torch's first top-k)
     run_offline(dataclasses.replace(base, sequences=4, top_k=50),
                 device=device)
-    tb.reset_counts()
-    mc.reset_counts()
-    fd.reset_counts()
-    ga.reset_counts()
+    trace.reset_counters(("thundering_", "pi_partials", "option_partials",
+                          "fused_dropout_2d", "fused_argmax"))
     t0 = time.perf_counter()
     reports = {}
     for label, cfg in (("temperature 1", base),
@@ -1413,15 +1408,15 @@ def phase_inference(device) -> dict:
             label, run_offline(cfg, parity=True, device=device))
     sync(device)
     wall = time.perf_counter() - t0
-    launches = {"gumbel_argmax": ga.fused_argmax.launches}
-    plain_runs = (ga.fused_argmax_plain.cuda_runs
-                  + tb.thundering_ctr_plain.cuda_runs
-                  + tb.thundering_faithful_plain.cuda_runs)
+    launches = {"gumbel_argmax": trace.counter("fused_argmax.launches")}
+    plain_runs = (trace.counter("fused_argmax_plain.cuda_runs")
+                  + trace.counter("thundering_ctr_plain.cuda_runs")
+                  + trace.counter("thundering_faithful_plain.cuda_runs"))
     steps = sum(r["decode_steps"] for r in reports.values())
     log(f"inference path: {wall:.2f} s wall; launches {launches} "
         f"({steps} fused decode steps); thundering_ctr launches "
-        f"{tb.thundering_ctr.launches} (arrivals, admissions, two-pass "
-        f"noise); plain versions run on the card: {plain_runs}")
+        f"{trace.counter('thundering_ctr.launches')} (arrivals, admissions, "
+        f"two-pass noise); plain versions run on the card: {plain_runs}")
     require(launches["gumbel_argmax"] == steps,
             f"kernel F launched {launches['gumbel_argmax']} times for "
             f"{steps} fused decode steps")
@@ -1873,15 +1868,15 @@ def phase_quality_path(device) -> dict:
     """The slice's path - the sharded fan-out, the mesh service, the
     coalescer at the main path's width and the battery - with the block generators' launch counts
     set to 0 just before and read just after."""
-    from repro_torch.kernels import thundering_block as tb
-    tb.reset_counts()
+    from repro_torch import trace
+    trace.reset_counters("thundering_")
     phase_sharded(device)
     phase_coalescer(device)
     phase_quality(device)
-    launches = {"thundering_ctr": tb.thundering_ctr.launches,
-                "thundering_faithful": tb.thundering_faithful.launches}
-    plain_runs = (tb.thundering_ctr_plain.cuda_runs
-                  + tb.thundering_faithful_plain.cuda_runs)
+    launches = {k: trace.counter(f"{k}.launches")
+                for k in ("thundering_ctr", "thundering_faithful")}
+    plain_runs = (trace.counter("thundering_ctr_plain.cuda_runs")
+                  + trace.counter("thundering_faithful_plain.cuda_runs"))
     log(f"quality path: launches {launches}; plain versions run on the "
         f"card: {plain_runs}")
     require(all(v > 0 for v in launches.values()),
@@ -2267,18 +2262,18 @@ def phase_service_path(device) -> dict:
     shard fleet - with the block generators' launch counts set to 0 just
     before and read just after.  The CLI's and the shards' launches are
     their own processes'; this process's runs must launch kernel A."""
-    from repro_torch.kernels import thundering_block as tb
+    from repro_torch import trace
     phase_service_plain(device)
-    tb.reset_counts()
+    trace.reset_counters("thundering_")
     digest = phase_service(device)
     phase_service_cli(device, digest)
     phase_fleet(device)
-    launches = {"thundering_ctr": tb.thundering_ctr.launches}
-    plain_runs = (tb.thundering_ctr_plain.cuda_runs
-                  + tb.thundering_faithful_plain.cuda_runs)
+    launches = {"thundering_ctr": trace.counter("thundering_ctr.launches")}
+    plain_runs = (trace.counter("thundering_ctr_plain.cuda_runs")
+                  + trace.counter("thundering_faithful_plain.cuda_runs"))
     log(f"service path: launches {launches}; thundering_faithful "
-        f"{tb.thundering_faithful.launches} (the server opens ctr channels "
-        f"only); plain versions run on the card: {plain_runs}")
+        f"{trace.counter('thundering_faithful.launches')} (the server opens "
+        f"ctr channels only); plain versions run on the card: {plain_runs}")
     require(launches["thundering_ctr"] > 0,
             "kernel A never launched on the service path")
     require(plain_runs == 0, "a plain version ran on a CUDA tensor")
@@ -2358,14 +2353,14 @@ def _draw_against_plain(label: str, s, n: int) -> None:
     ``stream.normal`` and the data pipeline draw - against the plain torch
     version of the same elements on the card, ``SERVE_PLAIN_WINDOW`` at a
     time: bit for bit (an exact stage, as in ``phase_parity``)."""
+    from repro_torch import trace
     from repro_torch.core import engine
     from repro_torch.core import stream as tstream
-    from repro_torch.kernels import thundering_block as tb
     t0 = time.perf_counter()
-    before = tb.thundering_ctr.launches
+    before = trace.counter("thundering_ctr.launches")
     got = tstream.uniforms(s, (n,))
-    require(tb.thundering_ctr.launches == before + 1, f"kernel A draws: "
-            f"{label} took {tb.thundering_ctr.launches - before} launches")
+    took = trace.counter("thundering_ctr.launches") - before
+    require(took == 1, f"kernel A draws: {label} took {took} launches")
     for lo in range(0, n, SERVE_PLAIN_WINDOW):
         m = min(SERVE_PLAIN_WINDOW, n - lo)
         want = engine.generate_flat(
@@ -2813,9 +2808,8 @@ def phase_serve_path(device, measured: dict) -> dict:
     peak memory goes into ``measured[(arch, "serve")]``."""
     import numpy as np
     import torch
+    from repro_torch import trace
     from repro_torch.configs import get_config
-    from repro_torch.inference.kernels import gumbel_argmax as ga
-    from repro_torch.kernels import thundering_block as tb
     from repro_torch.launch import serve as srv
     from repro_torch.models import registry
     from repro_torch.models.common import flatten
@@ -2833,8 +2827,7 @@ def phase_serve_path(device, measured: dict) -> dict:
     kw = dict(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=SERVE_GEN,
               seed=SERVE_SEED, device=device)
     total = torch.cuda.get_device_properties(device).total_memory
-    tb.reset_counts()
-    ga.reset_counts()
+    trace.reset_counters(("thundering_", "fused_argmax"))
     runs = {}
     for label, temp, path in (("fused", SERVE_TEMPERATURE, "fused"),
                               ("fused again", SERVE_TEMPERATURE, "fused"),
@@ -2842,7 +2835,7 @@ def phase_serve_path(device, measured: dict) -> dict:
                               ("greedy", 0.0, "fused")):
         _free_card()
         torch.cuda.reset_peak_memory_stats(device)
-        f0 = ga.fused_argmax.launches
+        f0 = trace.counter("fused_argmax.launches")
         toks, stats = srv.serve(cfg, temperature=temp, sampler_path=path,
                                 **kw)
         peak = torch.cuda.max_memory_allocated(device)
@@ -2854,7 +2847,7 @@ def phase_serve_path(device, measured: dict) -> dict:
                 and toks.max() < cfg.vocab, f"serve[{label}]: tokens "
                 f"{toks.shape} {toks.dtype} outside [0, {cfg.vocab})")
         require(peak < total, f"serve[{label}]: peak {peak} >= {total}")
-        f_launches = ga.fused_argmax.launches - f0
+        f_launches = trace.counter("fused_argmax.launches") - f0
         if temp > 0:
             require(stats["sampler_calls_per_step"] == 1.0,
                     f"serve[{label}]: {stats['sampler_calls_per_step']} "
@@ -2864,11 +2857,11 @@ def phase_serve_path(device, measured: dict) -> dict:
         else:
             require("sampler_calls_per_step" not in stats and
                     f_launches == 0, "greedy serving drew randomness")
-    launches = {"thundering_ctr": tb.thundering_ctr.launches,
-                "gumbel_argmax": ga.fused_argmax.launches}
-    plain_runs = (ga.fused_argmax_plain.cuda_runs
-                  + tb.thundering_ctr_plain.cuda_runs
-                  + tb.thundering_faithful_plain.cuda_runs)
+    launches = {"thundering_ctr": trace.counter("thundering_ctr.launches"),
+                "gumbel_argmax": trace.counter("fused_argmax.launches")}
+    plain_runs = (trace.counter("fused_argmax_plain.cuda_runs")
+                  + trace.counter("thundering_ctr_plain.cuda_runs")
+                  + trace.counter("thundering_faithful_plain.cuda_runs"))
     log(f"serve path: launches {launches}; plain versions run on the card: "
         f"{plain_runs}; tokens equal: fused twice "
         f"{np.array_equal(runs['fused'], runs['fused again'])}, fused = "
@@ -3386,13 +3379,13 @@ def _require_train_peaks(measured: dict, archs) -> None:
 
 
 def _kernel_a_launches(path: str) -> dict:
-    """Kernel A's launches since the last ``reset_counts``, on a path
+    """Kernel A's launches since the last ``trace.reset_counters``, on a path
     whose kernel is kernel A alone: at least one, and no plain version run
     on a CUDA tensor."""
-    from repro_torch.kernels import thundering_block as tb
-    launches = {"thundering_ctr": tb.thundering_ctr.launches}
-    plain_runs = (tb.thundering_ctr_plain.cuda_runs
-                  + tb.thundering_faithful_plain.cuda_runs)
+    from repro_torch import trace
+    launches = {"thundering_ctr": trace.counter("thundering_ctr.launches")}
+    plain_runs = (trace.counter("thundering_ctr_plain.cuda_runs")
+                  + trace.counter("thundering_faithful_plain.cuda_runs"))
     log(f"{path} path: launches {launches}; plain versions run on the "
         f"card: {plain_runs}")
     require(launches["thundering_ctr"] > 0, f"kernel A never launched on "
@@ -3529,14 +3522,14 @@ def phase_train_path(device, measured: dict) -> dict:
     width: 8 layers through ``make_train_step`` (``_train_full``, with a
     profiled step), 1 layer through ``train`` with its loop and
     checkpoints."""
-    from repro_torch.kernels import thundering_block as tb
+    from repro_torch import trace
     with _TrainCli(TRAIN_ARCH, TRAIN_SEQ) as cli:
         phase_train_adamw(device)
         phase_train_draws(device)
         _, params, losses = _train_smoke(TRAIN_ARCH, device, TRAIN_SEQ)
         cli.check(params, losses)
     del params
-    tb.reset_counts()
+    trace.reset_counters("thundering_")
     _train_full(TRAIN_ARCH, device, measured, TRAIN_STEPS, profile=True)
     _require_train_peaks(measured, [TRAIN_ARCH])
     phase_train_loop(device)
@@ -3758,17 +3751,15 @@ def phase_families_serve(device, measured: dict) -> dict:
     Returns the counts and the in-process tokens of each arch."""
     import numpy as np
     import torch
+    from repro_torch import trace
     from repro_torch.configs import get_config
-    from repro_torch.inference.kernels import gumbel_argmax as ga
-    from repro_torch.kernels import thundering_block as tb
     from repro_torch.launch import serve as srv
     from repro_torch.models import registry
     from repro_torch.models.common import flatten
     total = torch.cuda.get_device_properties(device).total_memory
     kw = dict(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=FAMILY_GEN,
               seed=SERVE_SEED, device=device)
-    tb.reset_counts()
-    ga.reset_counts()
+    trace.reset_counters(("thundering_", "fused_argmax"))
     fused = {}
     for arch in FAMILY_ARCHS:
         cfg = get_config(arch)
@@ -3787,7 +3778,7 @@ def phase_families_serve(device, measured: dict) -> dict:
         for label, temp, path in runs:
             _free_card()
             torch.cuda.reset_peak_memory_stats(device)
-            f0 = ga.fused_argmax.launches
+            f0 = trace.counter("fused_argmax.launches")
             with _MoeRoutes() as drops:
                 toks, stats = srv.serve(cfg, temperature=temp,
                                         sampler_path=path, **kw)
@@ -3808,7 +3799,7 @@ def phase_families_serve(device, measured: dict) -> dict:
                     and toks.max() < cfg.vocab, f"{arch} {label}: tokens "
                     f"{toks.shape} {toks.dtype} outside [0, {cfg.vocab})")
             require(peak < total, f"{arch} {label}: peak {peak} >= {total}")
-            f_launches = ga.fused_argmax.launches - f0
+            f_launches = trace.counter("fused_argmax.launches") - f0
             want_f = FAMILY_GEN if temp > 0 and path == "fused" else 0
             require(f_launches == want_f, f"{arch} {label}: kernel F "
                     f"launched {f_launches} times, not {want_f}")
@@ -3821,11 +3812,11 @@ def phase_families_serve(device, measured: dict) -> dict:
                 f"{int((toks_of['greedy'] == toks_of['fused']).sum())} of "
                 f"{toks_of['greedy'].size}")
         fused[arch] = toks_of["fused"]
-    launches = {"thundering_ctr": tb.thundering_ctr.launches,
-                "gumbel_argmax": ga.fused_argmax.launches}
-    plain_runs = (ga.fused_argmax_plain.cuda_runs
-                  + tb.thundering_ctr_plain.cuda_runs
-                  + tb.thundering_faithful_plain.cuda_runs)
+    launches = {"thundering_ctr": trace.counter("thundering_ctr.launches"),
+                "gumbel_argmax": trace.counter("fused_argmax.launches")}
+    plain_runs = (trace.counter("fused_argmax_plain.cuda_runs")
+                  + trace.counter("thundering_ctr_plain.cuda_runs")
+                  + trace.counter("thundering_faithful_plain.cuda_runs"))
     log(f"families path: launches {launches}; plain versions run on the "
         f"card: {plain_runs}")
     require(launches["thundering_ctr"] > 0 and launches["gumbel_argmax"] > 0,
@@ -3988,16 +3979,14 @@ def phase_large_serve(device, measured: dict, f_ms: dict) -> dict:
     the dry run's argument bytes at the same shape."""
     import numpy as np
     import torch
+    from repro_torch import trace
     from repro_torch.configs import get_config
-    from repro_torch.inference.kernels import gumbel_argmax as ga
-    from repro_torch.kernels import thundering_block as tb
     from repro_torch.launch import serve as srv
     from repro_torch.models import registry
     from repro_torch.models.common import flatten
     gib = 2 ** 30
     total = torch.cuda.get_device_properties(device).total_memory
-    tb.reset_counts()
-    ga.reset_counts()
+    trace.reset_counters(("thundering_", "fused_argmax"))
     for arch in LARGE_ARCHS:
         cfg = _large_cfg(arch)
         P = _large_prompt(cfg)
@@ -4028,7 +4017,8 @@ def phase_large_serve(device, measured: dict, f_ms: dict) -> dict:
         for label, temp, path in runs:
             _free_card()
             torch.cuda.reset_peak_memory_stats(device)
-            a0, f0 = tb.thundering_ctr.launches, ga.fused_argmax.launches
+            a0 = trace.counter("thundering_ctr.launches")
+            f0 = trace.counter("fused_argmax.launches")
             toks, stats = srv.serve(cfg, batch=SERVE_BATCH, prompt_len=P,
                                     gen=LARGE_GEN, seed=SERVE_SEED,
                                     temperature=temp, sampler_path=path,
@@ -4050,8 +4040,8 @@ def phase_large_serve(device, measured: dict, f_ms: dict) -> dict:
                     and toks.max() < cfg.vocab, f"{arch} {label}: tokens "
                     f"{toks.shape} {toks.dtype} outside [0, {cfg.vocab})")
             require(peak < total, f"{arch} {label}: peak {peak} >= {total}")
-            a_launches = tb.thundering_ctr.launches - a0
-            f_launches = ga.fused_argmax.launches - f0
+            a_launches = trace.counter("thundering_ctr.launches") - a0
+            f_launches = trace.counter("fused_argmax.launches") - f0
             want_f = LARGE_GEN if temp > 0 and path == "fused" else 0
             require(a_launches > 0, f"{arch} {label}: kernel A never "
                                     f"launched")
@@ -4065,11 +4055,11 @@ def phase_large_serve(device, measured: dict, f_ms: dict) -> dict:
             log(f"  {arch}: fused = two-pass tokens; greedy = fused at "
                 f"{int((toks_of['greedy'] == toks_of['fused']).sum())} of "
                 f"{toks_of['greedy'].size}")
-    launches = {"thundering_ctr": tb.thundering_ctr.launches,
-                "gumbel_argmax": ga.fused_argmax.launches}
-    plain_runs = (ga.fused_argmax_plain.cuda_runs
-                  + tb.thundering_ctr_plain.cuda_runs
-                  + tb.thundering_faithful_plain.cuda_runs)
+    launches = {"thundering_ctr": trace.counter("thundering_ctr.launches"),
+                "gumbel_argmax": trace.counter("fused_argmax.launches")}
+    plain_runs = (trace.counter("fused_argmax_plain.cuda_runs")
+                  + trace.counter("thundering_ctr_plain.cuda_runs")
+                  + trace.counter("thundering_faithful_plain.cuda_runs"))
     log(f"large path: launches {launches}; plain versions run on the "
         f"card: {plain_runs}")
     require(launches["thundering_ctr"] > 0 and launches["gumbel_argmax"] > 0,
@@ -4248,7 +4238,7 @@ def phase_train_families_path(device, measured: dict) -> dict:
     of ``TRAIN_FAMILY_ARCHS`` at published width cut to
     ``TRAIN_FAMILY_LAYERS`` through ``make_train_step`` (``_train_full``),
     olmoe and mamba2 with a profiled step."""
-    from repro_torch.kernels import thundering_block as tb
+    from repro_torch import trace
     with _TrainCli(TRAIN_CLI_ARCH, TRAIN_SMOKE_SEQ) as cli:
         phase_train_families_draws(device)
         for arch in TRAIN_SMOKE_ARCHS:
@@ -4262,7 +4252,7 @@ def phase_train_families_path(device, measured: dict) -> dict:
             del params
         cli.check(*cli_run)
         del cli_run
-    tb.reset_counts()
+    trace.reset_counters("thundering_")
     for arch in TRAIN_FAMILY_ARCHS:
         _train_full(arch, device, measured, TRAIN_FAMILY_STEPS,
                     profile=arch in TRAIN_FAMILY_PROFILE)
@@ -4280,8 +4270,8 @@ def phase_train_large_path(device, measured: dict) -> dict:
     (c) each of ``TRAIN_LARGE_ARCHS`` at published width cut to
     ``TRAIN_LARGE_LAYERS`` through ``make_train_step`` (``_train_full``),
     granite-moe and qwen1.5-32b with a profiled step."""
+    from repro_torch import trace
     from repro_torch.configs import get_config
-    from repro_torch.kernels import thundering_block as tb
     from repro_torch.launch.train import smoke_config
     _stacked_chunk_draws(TRAIN_LARGE_ARCHS, device)
     for arch in TRAIN_LARGE_ARCHS:
@@ -4289,7 +4279,7 @@ def phase_train_large_path(device, measured: dict) -> dict:
         _train_resume(arch, device, TRAIN_SMOKE_SEQ, cfg,
                       _train_run(cfg, device, TRAIN_SMOKE_SEQ,
                                  f"{arch}_clean"))
-    tb.reset_counts()
+    trace.reset_counters("thundering_")
     for arch in TRAIN_LARGE_ARCHS:
         _train_full(arch, device, measured, TRAIN_FAMILY_STEPS,
                     profile=arch in TRAIN_LARGE_PROFILE)
@@ -4648,9 +4638,9 @@ def phase_dryrun_path(device, measured: dict) -> dict:
     ``service_cell`` on the card; then its argument bytes against the
     peaks the serve, train, families, large, train families and train
     large paths measured."""
-    from repro_torch.kernels import thundering_block as tb
+    from repro_torch import trace
     phase_dryrun_cli()
-    tb.reset_counts()
+    trace.reset_counters("thundering_")
     phase_dryrun_fanout(device)
     phase_dryrun_service(device)
     launches = _kernel_a_launches("dryrun")

@@ -28,6 +28,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import lcg, sampler as sampler_mod, splitmix, u64, \
     xorshift
 from repro_torch.core.u64 import M64, U64Pair
@@ -79,10 +80,13 @@ def leaf_limbs(hs: Sequence[int], device="cpu") -> U64Pair:
 
 def leaf_table(h_family: int, num_streams: int, device="cpu") -> U64Pair:
     """(S,) even leaf offsets h_s for streams 0..S-1 of a family."""
-    sid = torch.arange(num_streams, dtype=torch.int64, device=device)
-    f_hi, f_lo = u64.split64(h_family)
-    return derive_leaf((torch.full_like(sid, f_hi), torch.full_like(sid, f_lo)),
-                       (torch.zeros_like(sid), sid))
+    trace.count("engine.leaf_tables")
+    with trace.span("engine.leaf_table"):
+        sid = torch.arange(num_streams, dtype=torch.int64, device=device)
+        f_hi, f_lo = u64.split64(h_family)
+        return derive_leaf((torch.full_like(sid, f_hi),
+                            torch.full_like(sid, f_lo)),
+                           (torch.zeros_like(sid), sid))
 
 
 # ---------------------------------------------------------------------------

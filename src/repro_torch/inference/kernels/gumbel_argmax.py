@@ -31,9 +31,10 @@ reference kernel do; -0.0 and +0.0 compare equal.  A sequence whose
 scores are all -inf (``thresh = +inf``, or every logit -inf) gets token 0.
 
 ``fused_argmax`` takes the plain version ``fused_argmax_plain`` for
-tensors on the CPU and launches kernel F for CUDA tensors; ``launches``
-counts the launches and the plain version's ``cuda_runs`` its runs on a
-card.  On the card a call is one launch of one thread block cluster per
+tensors on the CPU and launches kernel F for CUDA tensors; the counter
+``fused_argmax.launches`` (``repro_torch.trace``) counts the launches and
+``fused_argmax_plain.cuda_runs`` the plain version's runs on a card.  On
+the card a call is one launch of one thread block cluster per
 row (``launch_plan``; the card's cluster occupancy and the in-block jump
 table ``affine_table`` are set up once per device), with no scratch
 tensor and no host jump: the kernel takes ``x0`` and ``ctr`` as they
@@ -48,6 +49,7 @@ from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import engine, lcg, sampler as sampler_mod
 from repro_torch.core.u64 import M32, M64, U64Pair
 from repro_torch.kernels import build
@@ -302,7 +304,7 @@ def fused_argmax_plain(logits: torch.Tensor, h: torch.Tensor, x0: int,
     """
     B, V = _check(logits, h, thresh)
     if logits.is_cuda:
-        fused_argmax_plain.cuda_runs += 1
+        trace.count("fused_argmax_plain.cuda_runs")
     root, crow = engine.root_and_ctr_rows(x0, ctr & M64, V, logits.device)
     hh, hl = words_to_limbs(h)
     step = max(1, _PLAIN_ELEMS // V)
@@ -322,9 +324,6 @@ def fused_argmax_plain(logits: torch.Tensor, h: torch.Tensor, x0: int,
             best.append(s.gather(1, tok[:, None].long())[:, 0] + 0.0)
     tokens = torch.cat(toks)
     return (tokens, torch.cat(best)) if with_scores else tokens
-
-
-fused_argmax_plain.cuda_runs = 0
 
 
 def fused_argmax(logits: torch.Tensor, h: torch.Tensor, x0: int, ctr: int,
@@ -377,17 +376,8 @@ def fused_argmax(logits: torch.Tensor, h: torch.Tensor, x0: int, ctr: int,
         card.affine[plan.threads].data_ptr(), plan.jump_a, plan.jump_c,
         out.data_ptr(), 0 if scores_out is None else scores_out.data_ptr(),
         card.index, _current_stream(card.index))))
-    fused_argmax.launches += 1
+    trace.count("fused_argmax.launches")
     return out
-
-
-fused_argmax.launches = 0
-
-
-def reset_counts() -> None:
-    """Set the launch and plain-run counts of this module to zero."""
-    fused_argmax.launches = 0
-    fused_argmax_plain.cuda_runs = 0
 
 
 # ---------------------------------------------------------------------------

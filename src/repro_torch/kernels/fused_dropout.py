@@ -10,8 +10,10 @@ below ``keep_threshold(rate)``; kept values are x times x's dtype's
 rounding of 1 / (1 - rate).
 
 The wrapper takes the plain version (``ref.fused_dropout``) for a tensor
-on the CPU and launches the kernel for a CUDA tensor; ``launches`` counts
-the launches and the plain version's ``cuda_runs`` its runs on a card.
+on the CPU and launches the kernel for a CUDA tensor; the counter
+``fused_dropout_2d.launches`` (``repro_torch.trace``) counts the launches
+and ``fused_dropout_2d_plain.cuda_runs`` the plain version's runs on a
+card.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import lcg, sampler
 from repro_torch.core.u64 import M64
 from repro_torch.kernels import build, ref
@@ -65,11 +68,8 @@ def fused_dropout_2d_plain(x: torch.Tensor, h: int, x0: int, ctr0: int,
                            rate: float) -> torch.Tensor:
     """Plain torch version of kernel C."""
     if x.is_cuda:
-        fused_dropout_2d_plain.cuda_runs += 1
+        trace.count("fused_dropout_2d_plain.cuda_runs")
     return ref.fused_dropout(x, h, x0, ctr0, rate)
-
-
-fused_dropout_2d_plain.cuda_runs = 0
 
 
 def fused_dropout_2d(x: torch.Tensor, h: int, x0: int, ctr0: int,
@@ -116,14 +116,5 @@ def fused_dropout_2d(x: torch.Tensor, h: int, x0: int, ctr0: int,
     if code != 0:
         raise RuntimeError(f"fused_dropout_2d launch failed: "
                            f"{lib.fd_error_string(code).decode()}")
-    fused_dropout_2d.launches += 1
+    trace.count("fused_dropout_2d.launches")
     return out
-
-
-fused_dropout_2d.launches = 0
-
-
-def reset_counts() -> None:
-    """Set the launch and plain-run counts of this module to zero."""
-    fused_dropout_2d.launches = 0
-    fused_dropout_2d_plain.cuda_runs = 0

@@ -14,8 +14,10 @@ ceil8(T))`` and ``n_tiles = ceil(T / bt)``; rows past T count nothing.
 the result.
 
 Each wrapper takes its plain version for tensors on the CPU and launches
-its kernel for CUDA tensors; ``launches`` counts the launches and the
-plain versions' ``cuda_runs`` their runs on a CUDA tensor.
+its kernel for CUDA tensors; the counters ``<wrapper>.launches``
+(``repro_torch.trace``) count the launches and ``<plain version>.cuda_runs``
+the plain versions' runs on a CUDA tensor (``trace.reset_counters(
+("pi_partials", "option_partials"))`` zeroes them).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import lcg
 from repro_torch.core.u64 import M64, U64Pair
 from repro_torch.kernels import build, ref
@@ -90,12 +93,9 @@ def pi_partials_plain(x0: int, ctr: int, num_steps: int, hx: U64Pair,
     """Plain torch version of kernel D: the oracle ``ref.mc_pi_partial``
     of each row tile, stacked to (n_tiles, S) int32 counts."""
     if hx[0].is_cuda:
-        pi_partials_plain.cuda_runs += 1
+        trace.count("pi_partials_plain.cuda_runs")
     return torch.stack([ref.mc_pi_partial(x0, hx, hy, rows, c)
                         for rows, c in _tiles(ctr, num_steps, block_t)])
-
-
-pi_partials_plain.cuda_runs = 0
 
 
 def option_partials_plain(x0: int, ctr: int, num_steps: int, hx: U64Pair,
@@ -105,13 +105,10 @@ def option_partials_plain(x0: int, ctr: int, num_steps: int, hx: U64Pair,
     """Plain torch version of kernel E: the oracle ``ref.mc_option_partial``
     of each row tile, stacked to (n_tiles, S) float32 payoff sums."""
     if hx[0].is_cuda:
-        option_partials_plain.cuda_runs += 1
+        trace.count("option_partials_plain.cuda_runs")
     return torch.stack([
         ref.mc_option_partial(x0, hx, hy, rows, c, s0, strike, r, sigma, t)
         for rows, c in _tiles(ctr, num_steps, block_t)])
-
-
-option_partials_plain.cuda_runs = 0
 
 
 # ---------------------------------------------------------------------------
@@ -127,15 +124,16 @@ def _launch(app: int, x0: int, ctr: int, num_steps: int, hx: U64Pair,
         raise ValueError(f"{what} runs on cpu or cuda, not {device}")
     S = int(hx[0].shape[0])
     bt, n_tiles = tile_layout(num_steps, block_t)
-    out = output_tensor(out, n_tiles, S, dtype, device)
-    limbs = [u32_device(v) for v in (*hx, *hy)]
-    lib = _lib()
-    with torch.cuda.device(device):
-        code = lib.mc_launch(
-            app, out.data_ptr(), num_steps, S, lcg.advance(x0, ctr),
-            ctr & M64, *(v.data_ptr() for v in limbs), bt, n_tiles,
-            ctypes.byref(option),
-            torch.cuda.current_stream(device).cuda_stream)
+    with trace.span("mc.launch"):
+        out = output_tensor(out, n_tiles, S, dtype, device)
+        limbs = [u32_device(v) for v in (*hx, *hy)]
+        lib = _lib()
+        with torch.cuda.device(device):
+            code = lib.mc_launch(
+                app, out.data_ptr(), num_steps, S, lcg.advance(x0, ctr),
+                ctr & M64, *(v.data_ptr() for v in limbs), bt, n_tiles,
+                ctypes.byref(option),
+                torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
         raise RuntimeError(f"{what} launch failed: "
                            f"{lib.mc_error_string(code).decode()}")
@@ -158,11 +156,8 @@ def pi_partials(x0: int, ctr: int, num_steps: int, hx: U64Pair, hy: U64Pair,
                                           block_t=block_t), out)
     out = _launch(_APP_PI, x0, ctr, num_steps, hx, hy, block_t,
                   _McOption(), out, torch.int32, "pi_partials")
-    pi_partials.launches += 1
+    trace.count("pi_partials.launches")
     return out
-
-
-pi_partials.launches = 0
 
 
 def option_partials(x0: int, ctr: int, num_steps: int, hx: U64Pair,
@@ -182,11 +177,8 @@ def option_partials(x0: int, ctr: int, num_steps: int, hx: U64Pair,
     option = _McOption(*ref.option_constants(s0, strike, r, sigma, t))
     out = _launch(_APP_OPTION, x0, ctr, num_steps, hx, hy, block_t, option,
                   out, torch.float32, "option_partials")
-    option_partials.launches += 1
+    trace.count("option_partials.launches")
     return out
-
-
-option_partials.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -228,11 +220,3 @@ def option_partials_from_plans(px, py, *, s0: float, strike: float,
     return option_partials(x0, ctr, T, px.h, py.h, s0=s0, strike=strike,
                            r=r, sigma=sigma, t=t, block_t=block_t,
                            block_s=block_s)
-
-
-def reset_counts() -> None:
-    """Set every launch and plain-run count of this module to zero."""
-    pi_partials.launches = 0
-    option_partials.launches = 0
-    pi_partials_plain.cuda_runs = 0
-    option_partials_plain.cuda_runs = 0

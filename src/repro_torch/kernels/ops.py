@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import engine, stream as stream_mod
 from repro_torch.core.u64 import U64Pair
 from repro_torch.kernels import fused_dropout as _fd
@@ -109,10 +110,11 @@ def _mc_plans(seed: int, num_lanes: int, draws_per_lane: int,
     draw window [offset, offset + draws_per_lane): the window a
     ``BlockService`` lease hands out, so repeated calls never re-spend
     randomness."""
-    return tuple(engine.make_plan(seed=seed, num_streams=num_lanes,
-                                  num_steps=draws_per_lane, purpose=p,
-                                  offset=offset, device=device)
-                 for p in (purpose_x, purpose_y))
+    with trace.span("ops.mc_plans"):
+        return tuple(engine.make_plan(seed=seed, num_streams=num_lanes,
+                                      num_steps=draws_per_lane, purpose=p,
+                                      offset=offset, device=device)
+                     for p in (purpose_x, purpose_y))
 
 
 def estimate_pi(*, seed: int, num_lanes: int, draws_per_lane: int,

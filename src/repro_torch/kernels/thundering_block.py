@@ -9,9 +9,10 @@ viewed as (W, T, S).
 
 Each wrapper takes the kernel's plain version for tensors on the CPU and
 launches the kernel for CUDA tensors; there is no other path.  Each adds
-one to its ``launches`` count where it launches, and each plain version
-counts the times it ran on a CUDA tensor (``cuda_runs``), so a run can
-show that its main path went through the kernels.
+one to the counter ``<wrapper>.launches`` (``repro_torch.trace``) where it
+launches, and each plain version counts the times it ran on a CUDA tensor
+(``<plain version>.cuda_runs``), so a run can show that its main path went
+through the kernels; ``trace.reset_counters("thundering_")`` zeroes them.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import lcg, sampler as sampler_mod, u64, xorshift
 from repro_torch.core.u64 import U64Pair
 from repro_torch.kernels import build, ref
@@ -139,12 +141,9 @@ def thundering_ctr_plain(x0: int, ctr: int, rows: int, h: U64Pair, *,
                          out_dtype: str = "float32") -> torch.Tensor:
     """Plain torch version of kernel A: the (rows, S) sampled block."""
     if h[0].is_cuda:
-        thundering_ctr_plain.cuda_runs += 1
+        trace.count("thundering_ctr_plain.cuda_runs")
     bits = ref.thundering_block_ctr(x0, h, rows, ctr, deco=deco)
     return sampler_mod.apply(bits, sampler, out_dtype)
-
-
-thundering_ctr_plain.cuda_runs = 0
 
 
 def thundering_ctr(x0: int, ctr: int, rows: int, h: U64Pair, *,
@@ -181,11 +180,8 @@ def thundering_ctr(x0: int, ctr: int, rows: int, h: U64Pair, *,
             h_hi.data_ptr(), h_lo.data_ptr(), DECO_IDS[deco],
             ctypes.byref(rec), torch.cuda.current_stream(device).cuda_stream)
     _check(lib, code, "thundering_ctr")
-    thundering_ctr.launches += 1
+    trace.count("thundering_ctr.launches")
     return out
-
-
-thundering_ctr.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +217,7 @@ def thundering_faithful_plain(x0: int, ctr: int, rows: int, h: U64Pair,
     xorshift128 chain from its own start state, jumped on the host with
     ``xorshift.jump_batch`` (independent of the card's jump)."""
     if h[0].is_cuda:
-        thundering_faithful_plain.cuda_runs += 1
+        trace.count("thundering_faithful_plain.cuda_runs")
     n_tiles = -(-rows // block_t)
     tbl = xorshift.jump_batch(host_lanes(lanes), ctr & u64.M64)
     states = states_tensor(xorshift.states_at(
@@ -235,9 +231,6 @@ def thundering_faithful_plain(x0: int, ctr: int, rows: int, h: U64Pair,
         outs.append(w)
     deco = torch.stack(outs, 1).reshape(-1, perm.shape[1])[:rows]
     return sampler_mod.apply(perm ^ deco, sampler, out_dtype)
-
-
-thundering_faithful_plain.cuda_runs = 0
 
 
 def faithful_tile_states(lanes: torch.Tensor, ctr: int, block_t: int,
@@ -315,11 +308,8 @@ def thundering_faithful(x0: int, ctr: int, rows: int, h: U64Pair,
             h_lo.data_ptr(), states.data_ptr(), n_tiles, block_t,
             ctypes.byref(rec), torch.cuda.current_stream(device).cuda_stream)
     _check(lib, code, "thundering_faithful")
-    thundering_faithful.launches += 1
+    trace.count("thundering_faithful.launches")
     return out
-
-
-thundering_faithful.launches = 0
 
 
 def states_tensor(states: np.ndarray, device) -> torch.Tensor:
@@ -347,11 +337,3 @@ def pow2_tables(device) -> torch.Tensor:
     tables (``xorshift._pow2_nibble_tables``) on a card: 512 KiB, uploaded
     once."""
     return states_tensor(xorshift._pow2_nibble_tables(64), device)
-
-
-def reset_counts() -> None:
-    """Set every launch and plain-run count to zero."""
-    thundering_ctr.launches = 0
-    thundering_faithful.launches = 0
-    thundering_ctr_plain.cuda_runs = 0
-    thundering_faithful_plain.cuda_runs = 0

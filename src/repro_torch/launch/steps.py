@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import stream as tstream
 from repro_torch.models import registry, sharding
 from repro_torch.models.common import ArchConfig, flatten, unflatten
@@ -60,12 +61,27 @@ def make_train_step(model: registry.Model, *, seed: int = 0,
     ``microbatches`` > 1 = gradient accumulation: the global batch is
     processed in M sequential slices, so live activation memory scales
     with B/M while the loss and update are those of the mean gradient.
-    ``param_dtype="bf16"``: see ``value_and_grad``."""
+    ``param_dtype="bf16"``: see ``value_and_grad``.
+
+    With ``repro_torch.trace`` on, a step is span ``train.step`` (key: the
+    step) holding ``train.fwd_bwd`` and ``train.update``, both also timed
+    on the card.  ``adamw_update`` is looked up in this module at each
+    call, so a caller may wrap it."""
     lr = cosine_schedule(peak_lr, warmup, total_steps)
     root = tstream.new_stream(seed, 0xD07, device=model.device)
 
     def train_step(params, opt_state, batch, step: int):
-        rng = tstream.derive(root, int(step) & 0xFFFFFFFF)
+        step = int(step)
+        with trace.span("train.step", key=step):
+            rng = tstream.derive(root, step & 0xFFFFFFFF)
+            with trace.span("train.fwd_bwd", key=step, device=model.device):
+                loss, metrics, grads = _fwd_bwd(params, batch, rng)
+            with trace.span("train.update", key=step, device=model.device):
+                params, opt_state = adamw_update(grads, opt_state, params,
+                                                 lr=lr, compress=compress)
+            return params, opt_state, dict(metrics, loss=loss, step=step + 1)
+
+    def _fwd_bwd(params, batch, rng):
         if microbatches == 1:
             (loss, metrics), grads = value_and_grad(
                 model, params, batch, rng, param_dtype=param_dtype)
@@ -94,10 +110,7 @@ def make_train_step(model: registry.Model, *, seed: int = 0,
             loss = torch.mean(torch.stack(losses))
             metrics = {k: torch.mean(torch.stack([m[k] for m in ms]))
                        for k in ms[0]}
-        params, opt_state = adamw_update(grads, opt_state, params, lr=lr,
-                                         compress=compress)
-        metrics = dict(metrics, loss=loss, step=int(step) + 1)
-        return params, opt_state, metrics
+        return loss, metrics, grads
 
     return train_step
 

@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import engine, sampler as sampler_mod, stream as tstream
 from repro_torch.core.u64 import M64, U64Pair
 from repro_torch.kernels import ops
@@ -648,33 +649,37 @@ class BlockProducer:
             n = self._fuse
             if self._count is not None:
                 n = min(n, self._count - self._produced)
-            leases = self._service.lease_many(
-                self._name, self._block_len, n, at=self._pos)
-            if self._pos is not None:
-                self._pos += n * self._block_len
-            retired = None
+            retired = wait = None
             if self._donate and n == self._fuse:
-                retired = self._get_retired()
+                with trace.span("blocks.ring_wait") as wait:
+                    retired = self._get_retired()
                 if retired is None:  # stopping
+                    break
+            with trace.span("blocks.launch") as launch:
+                leases: List[Lease] = []
+                try:
+                    leases = self._service.lease_many(
+                        self._name, self._block_len, n, at=self._pos)
+                    launch.key = leases[0].lo
+                    if wait is not None:
+                        wait.key = launch.key
+                    if self._pos is not None:
+                        self._pos += n * self._block_len
+                    if self._fuse == 1:
+                        # a custom channel's window may be any tensor tree
+                        stack = self._service.generate(
+                            leases[0], retired=retired, **self._gen_kw)
+                        outs = [stack]
+                    else:
+                        stack = self._service.generate_many(
+                            leases, retired=retired, **self._gen_kw)
+                        outs = [stack[w] for w in range(n)]
+                except BaseException:
+                    if retired is not None:
+                        self._recycle.put((retired, self._event()))
                     for lease in leases:
                         self._service.release(lease)
-                    break
-            try:
-                if self._fuse == 1:
-                    # a custom channel's window may be any tensor tree
-                    stack = self._service.generate(
-                        leases[0], retired=retired, **self._gen_kw)
-                    outs = [stack]
-                else:
-                    stack = self._service.generate_many(
-                        leases, retired=retired, **self._gen_kw)
-                    outs = [stack[w] for w in range(n)]
-            except BaseException:
-                if retired is not None:
-                    self._recycle.put((retired, self._event()))
-                for lease in leases:
-                    self._service.release(lease)
-                raise
+                    raise
             if (self._check_ring and retired is not None
                     and stack.data_ptr() not in self._ring_ptrs):
                 raise AssertionError(
@@ -683,17 +688,24 @@ class BlockProducer:
                     f"{sorted(map(hex, self._ring_ptrs))}")
             ready = self._event()
             self._produced += n
-            for w in range(n):
-                last = retired if w == n - 1 else None
-                if not self._put((leases[w], outs[w], ready, last)):
-                    for lease in leases[w:]:
-                        self._service.release(lease)
-                    return
+            with trace.span("blocks.put_wait", key=leases[0].lo):
+                for w in range(n):
+                    last = retired if w == n - 1 else None
+                    if not self._put((leases[w], outs[w], ready, last)):
+                        for lease in leases[w:]:
+                            self._service.release(lease)
+                        return
 
     def __iter__(self) -> "BlockProducer":
         return self
 
     def __next__(self) -> Tuple[Lease, Any]:
+        with trace.span("blocks.next") as sp:
+            lease, block = self._take()
+            sp.key = lease.lo
+            return lease, block
+
+    def _take(self) -> Tuple[Lease, Any]:
         while True:
             if self._error is not None and self._queue.empty():
                 err, self._error = self._error, None
@@ -755,15 +767,18 @@ def _leased_app(service: BlockService, channel: str, num_streams: int,
                 length: int, fn: Callable[[Lease], Any]) -> Any:
     """open + lease + run + commit (release on failure): the lifecycle of
     every synchronous leased consumer."""
-    service.open(channel, num_streams=num_streams)
-    lease = service.lease(channel, length)
-    try:
-        result = fn(lease)
-    except Exception:
-        service.release(lease)
-        raise
-    service.commit(lease)
-    return result
+    trace.count("blocks.apps")
+    with trace.span("blocks.app") as sp:
+        service.open(channel, num_streams=num_streams)
+        lease = service.lease(channel, length)
+        sp.key = lease.lo
+        try:
+            result = fn(lease)
+        except Exception:
+            service.release(lease)
+            raise
+        service.commit(lease)
+        return result
 
 
 def estimate_pi(service: BlockService, *, num_lanes: int,

@@ -293,7 +293,8 @@ def test_result_dtype_and_bad_dtype():
 # ---------------------------------------------------------------------------
 
 PORT_MODULES = [
-    "repro_torch", "repro_torch.core", "repro_torch.core.u64",
+    "repro_torch", "repro_torch.trace", "repro_torch.core",
+    "repro_torch.core.u64",
     "repro_torch.core.lcg", "repro_torch.core.splitmix",
     "repro_torch.core.xorshift", "repro_torch.core.golden",
     "repro_torch.core.sampler", "repro_torch.core.engine",

@@ -17,6 +17,7 @@ import torch
 
 from repro.core import engine as j_engine
 from repro.core import stream as j_stream
+from repro_torch import trace
 from repro_torch.core import engine, sampler, stream
 from repro_torch.kernels import thundering_block as tb
 
@@ -213,11 +214,11 @@ def test_generate_into_out_buffer():
 
 
 def test_wrappers_count_no_launch_on_cpu():
-    tb.reset_counts()
+    trace.reset_counters("thundering_")
     _, tp = _plans(4, 3, 0, "ctr", "splitmix64")
     engine.generate(tp, backend="cuda")
-    assert tb.thundering_ctr.launches == 0
-    assert tb.thundering_ctr_plain.cuda_runs == 0
+    assert trace.counter("thundering_ctr.launches") == 0
+    assert trace.counter("thundering_ctr_plain.cuda_runs") == 0
 
 
 def test_faithful_tile_rows_are_even():

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import inference
+from repro_torch import inference, trace
 from repro_torch.core import engine, golden, sampler, stream, u64, \
     xorshift
 from repro_torch.inference.kernels import gumbel_argmax as ga
@@ -78,7 +78,7 @@ def test_kernel_matches_numpy_golden(cuda, mode):
 
 
 def test_windows_and_stream_on_card(cuda):
-    tb.reset_counts()
+    trace.reset_counters("thundering_")
     plan = engine.make_plan(seed=5, num_streams=300, num_steps=64,
                             device=cuda)
     stack = engine.generate_windows(plan, 3)
@@ -89,8 +89,8 @@ def test_windows_and_stream_on_card(cuda):
     col = stream.random_bits(stream.derive(fam, 7), (64,))
     assert torch.equal(col.view(torch.int32),
                        stack[0][:, 7].contiguous().view(torch.int32))
-    assert tb.thundering_ctr.launches > 0
-    assert tb.thundering_ctr_plain.cuda_runs == 0
+    assert trace.counter("thundering_ctr.launches") > 0
+    assert trace.counter("thundering_ctr_plain.cuda_runs") == 0
 
 
 @pytest.mark.parametrize("donate", [False, True])
@@ -202,11 +202,11 @@ def test_faithful_card_path_makes_no_host_jump(cuda, monkeypatch):
     monkeypatch.setattr(engine, "_faithful_tile_states", refuse)
     monkeypatch.setattr(engine, "_faithful_states_at", refuse)
     monkeypatch.setattr(xorshift, "jump_batch", refuse)
-    tb.reset_counts()
+    trace.reset_counters("thundering_")
     got = engine.generate(plan)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    assert tb.thundering_faithful.launches == 1
-    assert tb.thundering_faithful_plain.cuda_runs == 0
+    assert trace.counter("thundering_faithful.launches") == 1
+    assert trace.counter("thundering_faithful_plain.cuda_runs") == 0
 
 
 @pytest.mark.parametrize("mode", ["ctr", "faithful"])
@@ -263,9 +263,27 @@ def test_fused_dropout_kernel_takes_misaligned_input(cuda):
     assert torch.equal(got, want)
 
 
+def test_traced_leased_app_and_device_spans_on_card(cuda):
+    svc = BlockService(seed=2, device=cuda)
+    blocks.estimate_pi(svc, num_lanes=128, draws_per_lane=64)
+    trace.drain()
+    trace.enable()
+    try:
+        blocks.price_option(svc, num_lanes=128, draws_per_lane=64)
+        with trace.span("test.device", device=cuda) as dev:
+            torch.ones(1 << 24, device=cuda).cumsum(0)
+    finally:
+        trace.disable()
+    spans = {s.name: s for s in trace.drain()}
+    app, launch = spans["blocks.app"], spans["mc.launch"]
+    assert launch.parent == app.id and spans["ops.mc_plans"].parent == app.id
+    assert launch.device_ms is None
+    assert dev is spans["test.device"] and dev.device_ms > 0
+
+
 def test_apps_run_on_the_kernels(cuda):
-    mc.reset_counts()
-    fd.reset_counts()
+    trace.reset_counters(("pi_partials", "option_partials",
+                          "fused_dropout_2d"))
     kw = dict(seed=1, num_lanes=300, draws_per_lane=200, block_t=64)
     pi = ops.estimate_pi(**kw)
     assert pi.device.type == "cuda" and pi.dtype == torch.float32
@@ -285,11 +303,12 @@ def test_apps_run_on_the_kernels(cuda):
                              0.1)
     assert torch.equal(y.cpu().view(torch.int16), want.view(torch.int16))
     assert torch.equal(ops.fused_dropout(x, s, 0.1, use_kernel=False), y)
-    assert mc.pi_partials.launches > 0 and mc.option_partials.launches > 0
-    assert fd.fused_dropout_2d.launches > 0
-    assert mc.pi_partials_plain.cuda_runs == 0
-    assert mc.option_partials_plain.cuda_runs == 0
-    assert fd.fused_dropout_2d_plain.cuda_runs == 0
+    assert trace.counter("pi_partials.launches") > 0
+    assert trace.counter("option_partials.launches") > 0
+    assert trace.counter("fused_dropout_2d.launches") > 0
+    assert trace.counter("pi_partials_plain.cuda_runs") == 0
+    assert trace.counter("option_partials_plain.cuda_runs") == 0
+    assert trace.counter("fused_dropout_2d_plain.cuda_runs") == 0
 
 
 # ---------------------------------------------------------------------------
@@ -428,16 +447,15 @@ def test_gumbel_argmax_kernel_negative_zero_ties(cuda):
 
 
 def test_batcher_on_card_fused_equals_twopass(cuda):
-    ga.reset_counts()
-    tb.reset_counts()
+    trace.reset_counters(("fused_argmax", "thundering_"))
     cfg = inference.ScheduleConfig(capacity=16, vocab=1000, sequences=24,
                                    rate=4.0, seed=5, top_k=50)
     rep = inference.run_offline(cfg, parity=True, device=cuda)
     j = rep.to_json()
     assert j["parity_digest"] == j["digest"] and j["calls_per_step"] == 1.0
-    assert ga.fused_argmax.launches == j["decode_steps"]
-    assert tb.thundering_ctr.launches > 0
-    assert ga.fused_argmax_plain.cuda_runs == 0
+    assert trace.counter("fused_argmax.launches") == j["decode_steps"]
+    assert trace.counter("thundering_ctr.launches") > 0
+    assert trace.counter("fused_argmax_plain.cuda_runs") == 0
     cpu = inference.run_offline(cfg, device="cpu")
     assert cpu.result.digest == j["digest"]
 
@@ -576,7 +594,7 @@ def test_server_burst_replays_bit_identically_on_card(cuda):
                                      replay, response_digest,
                                      verify_ledger_disjoint)
     from repro_torch.service.burst import make_requests
-    tb.reset_counts()
+    trace.reset_counters("thundering_")
     journal = Journal()
     srv = RandServer(0, config=ServerConfig(
         max_batch=64, max_delay_s=0.25,
@@ -591,8 +609,8 @@ def test_server_burst_replays_bit_identically_on_card(cuda):
     assert response_digest(replay(journal, seed=0, device=cuda)) == \
         response_digest(out)
     verify_ledger_disjoint(journal)
-    assert tb.thundering_ctr.launches > 0
-    assert tb.thundering_ctr_plain.cuda_runs == 0
+    assert trace.counter("thundering_ctr.launches") > 0
+    assert trace.counter("thundering_ctr_plain.cuda_runs") == 0
 
 
 @pytest.mark.parametrize("version", [1, 2])
@@ -680,14 +698,14 @@ def test_float8_cast_on_card_equals_cpu(cuda):
 
 def test_chunked_init_on_card_equals_whole_draw(cuda):
     from repro_torch.models import common
-    tb.reset_counts()
+    trace.reset_counters("thundering_")
     s = common.param_stream(5, "layers/wi", cuda)
     whole = common.trunc_normal(s, (3, 1000, 7), 0.02)
     for chunk in (4097, 1 << 14):
         part = common.trunc_normal(s, (3, 1000, 7), 0.02, chunk=chunk)
         assert torch.equal(part.view(torch.int32), whole.view(torch.int32))
-    assert tb.thundering_ctr.launches > 0
-    assert tb.thundering_ctr_plain.cuda_runs == 0
+    assert trace.counter("thundering_ctr.launches") > 0
+    assert trace.counter("thundering_ctr_plain.cuda_runs") == 0
     cpu = common.trunc_normal(common.param_stream(5, "layers/wi", "cpu"),
                               (3, 1000, 7), 0.02)
     assert int((_ordered_f32(whole.cpu()) - _ordered_f32(cpu)).abs().max()) \
@@ -699,14 +717,14 @@ def test_serve_on_card_fused_equals_twopass(cuda):
     from repro_torch.launch import serve
     from repro_torch.launch.train import smoke_config
     cfg = smoke_config(get_config("glm4_9b"))
-    ga.reset_counts()
+    trace.reset_counters("fused_argmax")
     kw = dict(batch=4, prompt_len=8, gen=6, temperature=0.8, device=cuda)
     fused, stats = serve.serve(cfg, sampler_path="fused", **kw)
-    assert ga.fused_argmax.launches == 6
+    assert trace.counter("fused_argmax.launches") == 6
     twopass, _ = serve.serve(cfg, sampler_path="cuda", **kw)
     assert np.array_equal(fused, twopass)
     assert stats["sampler_calls_per_step"] == 1.0
-    assert ga.fused_argmax_plain.cuda_runs == 0
+    assert trace.counter("fused_argmax_plain.cuda_runs") == 0
 
 
 def test_train_on_card_is_deterministic_and_resumes(cuda, tmp_path):
@@ -716,11 +734,11 @@ def test_train_on_card_is_deterministic_and_resumes(cuda, tmp_path):
     cfg = smoke_config(get_config("gemma_7b"))
     kw = dict(steps=4, global_batch=4, seq_len=64, save_every=2,
               log_every=1, device=cuda)
-    tb.reset_counts()
+    trace.reset_counters("thundering_")
     runs = [train(cfg, ckpt_dir=str(tmp_path / name), fail_at=fail, **kw)
             for name, fail in (("a", None), ("b", None), ("c", 3))]
-    assert tb.thundering_ctr.launches > 0
-    assert tb.thundering_ctr_plain.cuda_runs == 0
+    assert trace.counter("thundering_ctr.launches") > 0
+    assert trace.counter("thundering_ctr_plain.cuda_runs") == 0
     (pa, oa, la), (pb, ob, lb), (pc, _, lc) = runs
     assert la == lb and dict(lc) == dict(la)
     for k, v in flatten(pa).items():
