@@ -425,6 +425,24 @@ def _block_pair(kname, deco, plan, T, spec, dtype, out=None):
     return got, plain(*args, **kw)
 
 
+def _leaf_table_checks(device, S: int) -> int:
+    """The leaf-table kernel against its plain version, bit for bit, at
+    S streams: the families of SEED's purposes 0-4 (the apps' plans take
+    1-4) and one with the top bit set.  Returns the number of checks."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import thundering_block as tb
+    fams = [engine.family_from_seed(SEED, p)[1] for p in range(5)]
+    fams.append(fams[0] | 1 << 63)
+    for h_fam in fams:
+        got = tb.leaf_table(h_fam, S, device)
+        want = tb.leaf_table_plain(h_fam, S, device)
+        require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                f"leaf table: kernel != plain version for family "
+                f"{h_fam:#018x}, S={S}")
+    return len(fams)
+
+
 def phase_parity(device) -> dict:
     """Every kernel x stage x dtype x shape against the plain version:
     the main path's shapes, S = 1 (the stream API), S that no 16-byte run
@@ -467,6 +485,7 @@ def phase_parity(device) -> dict:
                     key = f"{spec[0]}/{dtype}"
                     stage_ulp[key] = max(stage_ulp.get(key, 0.0), ulp)
                     n += 1
+    n += sum(_leaf_table_checks(device, S) for S in (S_FULL, S_FULL + 1))
     log(f"parity: {n} kernel-vs-plain checks passed in "
         f"{time.perf_counter() - t0:.1f} s")
     for key in sorted(stage_ulp):
@@ -1038,7 +1057,7 @@ def phase_apps(device) -> dict:
     sync(device)
 
     trace.reset_counters(("thundering_", "pi_partials", "option_partials",
-                          "fused_dropout_2d"))
+                          "fused_dropout_2d", "leaf_table"))
     t0 = time.perf_counter()
     kw = dict(seed=SEED, num_lanes=APP_LANES, draws_per_lane=APP_DRAWS)
     pi = ops.estimate_pi(**kw)
@@ -1060,10 +1079,12 @@ def phase_apps(device) -> dict:
     wall = time.perf_counter() - t0
     launches = {"pi_partials": trace.counter("pi_partials.launches"),
                 "option_partials": trace.counter("option_partials.launches"),
-                "fused_dropout_2d": trace.counter("fused_dropout_2d.launches")}
+                "fused_dropout_2d": trace.counter("fused_dropout_2d.launches"),
+                "leaf_table": trace.counter("leaf_table.launches")}
     plain_runs = (trace.counter("pi_partials_plain.cuda_runs")
                   + trace.counter("option_partials_plain.cuda_runs")
                   + trace.counter("fused_dropout_2d_plain.cuda_runs")
+                  + trace.counter("leaf_table_plain.cuda_runs")
                   + trace.counter("thundering_ctr_plain.cuda_runs")
                   + trace.counter("thundering_faithful_plain.cuda_runs"))
     log(f"apps path: {wall:.2f} s wall; launches {launches}; plain versions "
@@ -1071,6 +1092,9 @@ def phase_apps(device) -> dict:
     require(all(v > 0 for v in launches.values()),
             f"a kernel of the apps path never launched: {launches}")
     require(plain_runs == 0, "a plain version ran on a CUDA tensor")
+    n_leaf = _leaf_table_checks(device, APP_LANES)
+    log(f"apps path: {n_leaf} leaf tables of {APP_LANES} streams equal "
+        f"their plain version")
 
     # pi: within 5 sigma of the binomial estimate; three tiles of the
     # partials against the plain oracle on shifted windows

@@ -61,14 +61,8 @@ def family_from_seed(seed: int, purpose: int = 0) -> Tuple[int, int]:
     return x0, h
 
 
-def derive_leaf(h_parent: U64Pair, tag: U64Pair) -> U64Pair:
-    """Child leaf offset: splitmix64(h_parent, tag) forced even (<< 1)."""
-    return u64.shl64(splitmix.splitmix64(h_parent, tag), 1)
-
-
-def derive_leaf_host(h_parent: int, tag: int) -> int:
-    """Python-int mirror of ``derive_leaf``."""
-    return (splitmix.splitmix64_host(h_parent, tag & M64) << 1) & M64
+derive_leaf = splitmix.derive_leaf
+derive_leaf_host = splitmix.derive_leaf_host
 
 
 def leaf_limbs(hs: Sequence[int], device="cpu") -> U64Pair:
@@ -79,14 +73,13 @@ def leaf_limbs(hs: Sequence[int], device="cpu") -> U64Pair:
 
 
 def leaf_table(h_family: int, num_streams: int, device="cpu") -> U64Pair:
-    """(S,) even leaf offsets h_s for streams 0..S-1 of a family."""
+    """(S,) even leaf offsets h_s = ``derive_leaf(h_family, s)`` for
+    streams 0..S-1 of a family: one kernel launch on a card, the limb
+    arithmetic of the plain version elsewhere."""
+    from repro_torch.kernels import thundering_block as _tb
     trace.count("engine.leaf_tables")
     with trace.span("engine.leaf_table"):
-        sid = torch.arange(num_streams, dtype=torch.int64, device=device)
-        f_hi, f_lo = u64.split64(h_family)
-        return derive_leaf((torch.full_like(sid, f_hi),
-                            torch.full_like(sid, f_lo)),
-                           (torch.zeros_like(sid), sid))
+        return _tb.leaf_table(h_family, num_streams, device)
 
 
 # ---------------------------------------------------------------------------

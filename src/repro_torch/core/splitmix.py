@@ -1,6 +1,6 @@
 """SplitMix64 and the counter decorrelators, on u32 limbs.
 
-SplitMix64 derives leaf offsets (``engine.derive_leaf``) and serves as
+SplitMix64 derives leaf offsets (``derive_leaf``) and serves as
 the counter-mode decorrelator: ``splitmix64(h ^ K, counter)`` replaces the
 paper's serial xorshift128 substream with a pure function of
 (stream, position), keeping the two constraints of Sec. 3.2.3 (a family
@@ -55,6 +55,16 @@ def mix64_host(z: int) -> int:
 
 def splitmix64_host(seed: int, index: int) -> int:
     return mix64_host((seed + ((index + 1) * GAMMA)) & u64.M64)
+
+
+def derive_leaf(h_parent: U64Pair, tag: U64Pair) -> U64Pair:
+    """Child leaf offset: splitmix64(h_parent, tag) forced even (<< 1)."""
+    return u64.shl64(splitmix64(h_parent, tag), 1)
+
+
+def derive_leaf_host(h_parent: int, tag: int) -> int:
+    """Python-int mirror of ``derive_leaf``."""
+    return (splitmix64_host(h_parent, tag & u64.M64) << 1) & u64.M64
 
 
 def fmix32(x: torch.Tensor) -> torch.Tensor:

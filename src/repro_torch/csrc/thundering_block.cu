@@ -12,6 +12,10 @@
 //                           below, the counterpart of the reference's
 //                           xorshift.jump_traced.
 //
+// Beside them, tb_leaf_table_kernel writes a family's (S,) leaf offsets,
+// the table every plan carries (engine.leaf_table): one launch where the
+// plain version's limb arithmetic takes 177 device operations.
+//
 // Element (t, s) of a block is
 //     XSH_RR(root(ctr + t + 1) + h_s) ^ deco_s(t)
 // followed by the sampler stage, so only the sampled dtype reaches device
@@ -299,6 +303,20 @@ tb_tile_states_kernel(const u32* __restrict__ at, u32* __restrict__ states, int 
   }
 }
 
+// ---- leaf table ---------------------------------------------------------------
+
+// The leaf offsets of streams 0..S-1 of a family, h_s = splitmix64(h_family,
+// s) << 1, one thread a stream, as the port's u32 limbs in int64 words: the
+// (2, S) buffer out holds the hi limbs in row 0 and the lo limbs in row 1.
+__global__ void __launch_bounds__(TB_THREADS)
+tb_leaf_table_kernel(u64* __restrict__ out, int S, u64 h_family) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= S) return;
+  const u64 h = tb_mix64(h_family + ((u64)s + 1ULL) * TB_GAMMA) << 1;
+  out[s] = h >> 32;
+  out[(size_t)S + s] = h & 0xFFFFFFFFULL;
+}
+
 // ---- launches ----------------------------------------------------------------
 
 // Threads for two waves of the card: enough bytes in flight on every SM.
@@ -447,6 +465,15 @@ int tb_faithful_launch(void* out, long long rows, int S, u64 base,
   const Stage& st = *stage;
   TB_DISPATCH(tb_faithful_launch_t, out, rows, S, base, (const u64*)h_hi, (const u64*)h_lo,
               (const u32*)states, n_tiles, bt, st, (cudaStream_t)stream)
+}
+
+// Write the (2, S) int64 leaf table of family h_family (hi limbs, then lo
+// limbs) into out on `stream`; no launch when S <= 0.
+int tb_leaf_table_launch(void* out, int S, u64 h_family, void* stream) {
+  if (S <= 0) return 0;
+  const unsigned grid = (unsigned)(((long long)S + TB_THREADS - 1) / TB_THREADS);
+  tb_leaf_table_kernel<<<grid, TB_THREADS, 0, (cudaStream_t)stream>>>((u64*)out, S, h_family);
+  return (int)cudaGetLastError();
 }
 
 const char* tb_error_string(int code) {

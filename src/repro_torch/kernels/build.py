@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 # -split-compile=0 runs the device optimiser and ptxas on as many threads
-# as there are cores: thundering_block.cu's 82 kernels build in ~29 s
+# as there are cores: thundering_block.cu's 83 kernels build in ~29 s
 # instead of ~50 s on an 8-core host; ptxas reports the same register
 # range (29-226) and spills, and every kernel's output digest is unchanged
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

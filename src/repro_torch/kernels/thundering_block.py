@@ -1,18 +1,21 @@
-"""Launch wrappers of the two CUDA block generators, with their plain versions.
+"""Launch wrappers of the two CUDA block generators and of the leaf table,
+with their plain versions.
 
 ``thundering_ctr`` (kernel A, ``csrc/thundering_block.cu``) generates a
 (rows, S) ctr-mode block; ``thundering_faithful`` (kernel B) the paper's
 serial-xorshift128 block.  A stack of W consecutive counter windows is one
 block of W*T consecutive rows, so the windowed forms of the reference
 (``block_ctr_windows``, ``block_faithful_windows``) are the same launches
-viewed as (W, T, S).
+viewed as (W, T, S).  ``leaf_table`` writes a family's (S,) leaf offsets,
+the table of every plan (``engine.leaf_table``), in one launch.
 
 Each wrapper takes the kernel's plain version for tensors on the CPU and
 launches the kernel for CUDA tensors; there is no other path.  Each adds
 one to the counter ``<wrapper>.launches`` (``repro_torch.trace``) where it
 launches, and each plain version counts the times it ran on a CUDA tensor
 (``<plain version>.cuda_runs``), so a run can show that its main path went
-through the kernels; ``trace.reset_counters("thundering_")`` zeroes them.
+through the kernels; ``trace.reset_counters(("thundering_",
+"leaf_table"))`` zeroes them.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch import trace
-from repro_torch.core import lcg, sampler as sampler_mod, u64, xorshift
+from repro_torch.core import lcg, sampler as sampler_mod, splitmix, u64, \
+    xorshift
 from repro_torch.core.u64 import U64Pair
 from repro_torch.kernels import build, ref
 
@@ -55,6 +59,8 @@ def _lib() -> ctypes.CDLL:
         lib.tb_tile_states_launch.argtypes = [ptr, ptr, ptr, ptr, cint,
                                               u64_t, i64, cint, ptr]
         lib.tb_tile_states_launch.restype = cint
+        lib.tb_leaf_table_launch.argtypes = [ptr, cint, u64_t, ptr]
+        lib.tb_leaf_table_launch.restype = cint
         lib.tb_error_string.argtypes = [cint]
         lib.tb_error_string.restype = ctypes.c_char_p
         lib._tb_typed = True
@@ -129,6 +135,43 @@ def _check_stage_rows(spec, rows: int) -> None:
     if spec[0] == "normal" and rows % 2:
         raise ValueError(f"sampler='normal' pairs adjacent rows and needs "
                          f"an even row count, got {rows}")
+
+
+# ---------------------------------------------------------------------------
+# Leaf table
+# ---------------------------------------------------------------------------
+
+def leaf_table_plain(h_family: int, S: int, device="cpu") -> U64Pair:
+    """Plain torch version of the leaf-table kernel:
+    ``splitmix.derive_leaf(h_family, s)`` for s < S in u32-limb
+    arithmetic on ``device``."""
+    if torch.device(device).type == "cuda":
+        trace.count("leaf_table_plain.cuda_runs")
+    sid = torch.arange(S, dtype=torch.int64, device=device)
+    f_hi, f_lo = u64.split64(h_family)
+    return splitmix.derive_leaf(
+        (torch.full_like(sid, f_hi), torch.full_like(sid, f_lo)),
+        (torch.zeros_like(sid), sid))
+
+
+def leaf_table(h_family: int, S: int, device="cpu") -> U64Pair:
+    """(hi, lo) u32 limb tensors (int64, shape (S,)) of the even leaf
+    offsets h_s = splitmix64(h_family, s) << 1 of streams 0..S-1.  On a
+    card one launch writes both rows of a (2, S) buffer; elsewhere the
+    plain version runs."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return leaf_table_plain(h_family, S, device)
+    buf = torch.empty((2, S), dtype=torch.int64, device=device)
+    if S > 0:
+        lib = _lib()
+        with torch.cuda.device(buf.device):
+            code = lib.tb_leaf_table_launch(
+                buf.data_ptr(), S, h_family & u64.M64,
+                torch.cuda.current_stream(buf.device).cuda_stream)
+        _check(lib, code, "leaf_table")
+        trace.count("leaf_table.launches")
+    return buf[0], buf[1]
 
 
 # ---------------------------------------------------------------------------

@@ -221,6 +221,40 @@ def test_wrappers_count_no_launch_on_cpu():
     assert trace.counter("thundering_ctr_plain.cuda_runs") == 0
 
 
+# Families from seeds {0, 7, 2**63 + 5} x purposes {0, 3}: leaf offsets
+# with the top bit set among them.
+LEAF_FAMILIES = [engine.family_from_seed(seed, purpose)[1]
+                 for seed in (0, 7, 2 ** 63 + 5) for purpose in (0, 3)]
+
+
+@pytest.mark.parametrize("S", [1, 7, 257])
+@pytest.mark.parametrize("h_family", LEAF_FAMILIES[:2] + LEAF_FAMILIES[-1:])
+def test_leaf_table_equals_derive_leaf_host(h_family, S):
+    hi, lo = engine.leaf_table(h_family, S, CPU)
+    assert hi.dtype == lo.dtype == torch.int64 and hi.shape == (S,)
+    got = [(int(a) << 32) | int(b) for a, b in zip(hi, lo)]
+    assert got == [engine.derive_leaf_host(h_family, s) for s in range(S)]
+
+
+def test_leaf_table_takes_the_plain_version_on_cpu():
+    trace.reset_counters("leaf_table")
+    tables = trace.counter("engine.leaf_tables")
+    h_fam = LEAF_FAMILIES[-1]
+    got = engine.leaf_table(h_fam, 33, torch.device(CPU))
+    want = tb.leaf_table_plain(h_fam, 33)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert trace.counter("engine.leaf_tables") == tables + 1
+    assert trace.counter("leaf_table.launches") == 0
+    assert trace.counter("leaf_table_plain.cuda_runs") == 0
+
+
+def test_leaf_table_of_no_streams_is_empty():
+    for table in (engine.leaf_table(LEAF_FAMILIES[0], 0, CPU),
+                  tb.leaf_table(LEAF_FAMILIES[0], 0)):
+        assert [(t.dtype, tuple(t.shape)) for t in table] == \
+            [(torch.int64, (0,))] * 2
+
+
 def test_faithful_tile_rows_are_even():
     assert tb.tile_rows(256, 4096) == 256
     assert tb.tile_rows(256, 9) == 10

@@ -281,6 +281,54 @@ def test_traced_leased_app_and_device_spans_on_card(cuda):
     assert dev is spans["test.device"] and dev.device_ms > 0
 
 
+# Families from seeds {0, 7, 2**63 + 5} x purposes 0..4: leaf offsets with
+# the top bit set among them.
+LEAF_FAMILIES = [engine.family_from_seed(seed, purpose)[1]
+                 for seed in (0, 7, 2 ** 63 + 5) for purpose in range(5)]
+
+
+@pytest.mark.parametrize("S", [1, 7, 255, 256, 257, 16384, 2 ** 20 + 3])
+def test_leaf_table_kernel_matches_plain_version(cuda, S):
+    trace.reset_counters("leaf_table")
+    top_bit = False
+    for h_fam in LEAF_FAMILIES:
+        got = tb.leaf_table(h_fam, S, cuda)
+        want = tb.leaf_table_plain(h_fam, S, cuda)
+        assert all(g.is_contiguous() and g.dtype == torch.int64
+                   and g.shape == (S,) for g in got)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        top_bit |= bool((got[0] >> 31).any())
+    assert top_bit
+    assert trace.counter("leaf_table.launches") == len(LEAF_FAMILIES)
+    before = trace.counter("engine.leaf_tables")
+    hi, lo = engine.leaf_table(LEAF_FAMILIES[-1], S, cuda)
+    assert trace.counter("engine.leaf_tables") == before + 1
+    assert trace.counter("leaf_table.launches") == len(LEAF_FAMILIES) + 1
+    assert hi.is_cuda and trace.counter("leaf_table_plain.cuda_runs") == \
+        len(LEAF_FAMILIES)
+
+
+def test_leased_apps_on_kernel_tables_equal_plain_tables(cuda, monkeypatch):
+    kw = dict(num_lanes=300, draws_per_lane=128)
+
+    def calls(svc):
+        out = []
+        for fn in (blocks.estimate_pi, blocks.price_option) * 2:
+            n = trace.counter("leaf_table.launches")
+            out.append((fn(svc, **kw).item(),
+                        trace.counter("leaf_table.launches") - n))
+        return out
+
+    trace.reset_counters("leaf_table")
+    got = calls(BlockService(seed=2, device=cuda))
+    assert [n for _, n in got] == [2] * 4
+    assert trace.counter("leaf_table_plain.cuda_runs") == 0
+    monkeypatch.setattr(tb, "leaf_table", tb.leaf_table_plain)
+    want = calls(BlockService(seed=2, device=cuda))
+    assert trace.counter("leaf_table_plain.cuda_runs") == 8
+    assert [v for v, _ in got] == [v for v, _ in want]
+
+
 def test_apps_run_on_the_kernels(cuda):
     trace.reset_counters(("pi_partials", "option_partials",
                           "fused_dropout_2d"))
