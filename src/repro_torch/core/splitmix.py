@@ -22,7 +22,11 @@ CTR_KEY = 0xD1B54A32D192ED03
 
 
 def _const(value: int, like: torch.Tensor) -> U64Pair:
-    return u64.const64(value, device=like.device)
+    """``value`` as 0-dim limbs on ``like``'s device, filled there: a copy
+    from the host would wait for a card's queue to drain."""
+    hi, lo = u64.split64(value)
+    return (torch.full((), hi, dtype=torch.int64, device=like.device),
+            torch.full((), lo, dtype=torch.int64, device=like.device))
 
 
 def mix64(z: U64Pair) -> U64Pair:

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,6 +92,20 @@ class ArchConfig:
     def scaled(self, **overrides) -> "ArchConfig":
         """A reduced copy for smoke tests."""
         return dataclasses.replace(self, **overrides)
+
+
+@dataclasses.dataclass(frozen=True)
+class GraniteConfig(ArchConfig):
+    """An ``ArchConfig`` with GraniteMoe's four scalars, each left out
+    where None: the embedding times ``embedding_multiplier``, attention
+    logits times ``attention_multiplier`` in place of 1 / sqrt(head_dim),
+    each residual branch times ``residual_multiplier`` and the logits over
+    ``logits_scaling``.  The port's own class: ``ArchConfig``'s fields stay
+    those of the reference package."""
+    embedding_multiplier: Optional[float] = None
+    attention_multiplier: Optional[float] = None
+    residual_multiplier: Optional[float] = None
+    logits_scaling: Optional[float] = None
 
 
 def param_stream(seed: int, path: str, device=None) -> tstream.ThunderStream:

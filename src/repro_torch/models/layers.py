@@ -183,18 +183,24 @@ def _attn_combine(w, v):
     return torch.einsum("bkrqt,btkd->bqkrd", w.to(v.dtype), v)
 
 
+def _logit_scale(d: int, scale: Optional[float]) -> float:
+    """The attention logits' factor: ``scale``, else 1 / sqrt(d)."""
+    return float(np.float32(1.0 / math.sqrt(d) if scale is None else scale))
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, q_chunk: int = 512,
-              q_offset: int = 0) -> torch.Tensor:
+              q_offset: int = 0, scale: Optional[float] = None
+              ) -> torch.Tensor:
     """Memory-efficient attention.
 
     q: (B, S, K, R, d); k/v: (B, T, K, d).  Returns (B, S, K, R, d).
     ``q_offset``: absolute position of q[0] (for causal masking in
-    prefill-with-cache scenarios).
+    prefill-with-cache scenarios).  ``scale`` replaces 1 / sqrt(d).
     """
     B, S, K, R, d = q.shape
     T = k.shape[1]
-    scale = float(np.float32(1.0 / math.sqrt(d)))
+    scale = _logit_scale(d, scale)
     qc = min(q_chunk, S)
     while S % qc:
         qc -= 1
@@ -218,17 +224,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+                     v_cache: torch.Tensor, pos: int,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """One-token attention against a (B, T, K, d) cache, masked to <= pos.
 
-    q: (B, 1, K, R, d).
+    q: (B, 1, K, R, d).  ``scale`` replaces 1 / sqrt(d).
     """
     d = q.shape[-1]
     T = k_cache.shape[1]
     if k_cache.dtype != q.dtype:   # e.g. f8 storage -> bf16 compute
         k_cache = k_cache.to(q.dtype)
         v_cache = v_cache.to(q.dtype)
-    scale = float(np.float32(1.0 / math.sqrt(d)))
+    scale = _logit_scale(d, scale)
     logits = _attn_logits(q, k_cache, scale)  # (B, K, R, 1, T)
     mask = torch.arange(T, device=q.device) <= int(pos)
     logits = torch.where(mask, logits, MASK_VALUE)
@@ -349,14 +356,23 @@ class _Gather(torch.autograd.Function):
         return scatter_add_rows(g, idx, ctx.rows), None
 
 
-def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return _Gather.apply(table, tokens.to(torch.int64)).to(COMPUTE_DTYPE)
+def embed(tokens: torch.Tensor, table: torch.Tensor,
+          multiplier: Optional[float] = None) -> torch.Tensor:
+    """The rows of ``tokens``, times ``multiplier`` in float32 if given,
+    in bf16."""
+    rows = _Gather.apply(table, tokens.to(torch.int64))
+    if multiplier is not None:
+        rows = rows * multiplier
+    return rows.to(COMPUTE_DTYPE)
 
 
-def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """(B, S, D) x (V, D) -> (B, S, V) fp32 logits of the bf16 operands."""
+def unembed(x: torch.Tensor, table: torch.Tensor,
+            divisor: Optional[float] = None) -> torch.Tensor:
+    """(B, S, D) x (V, D) -> (B, S, V) fp32 logits of the bf16 operands,
+    over ``divisor`` if given."""
     t = table.to(x.dtype).to(torch.float32)
-    return torch.matmul(x.to(torch.float32), t.T)
+    logits = torch.matmul(x.to(torch.float32), t.T)
+    return logits if divisor is None else logits / divisor
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
@@ -372,13 +388,14 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def softmax_xent_chunked(h: torch.Tensor, table: torch.Tensor,
-                         labels: torch.Tensor, n_chunks: int = 16
-                         ) -> torch.Tensor:
+                         labels: torch.Tensor, n_chunks: int = 16,
+                         divisor: Optional[float] = None) -> torch.Tensor:
     """Vocab-memory-bounded cross-entropy: unembed + xent evaluated one
     sequence chunk at a time, each chunk remat'd, so the (B, S, V) logits
     tensor is never materialized (peak = one (B, S/nc, V) chunk).
 
-    h: (B, S, D) hidden states; table: (V, D); labels: (B, S) int32.
+    h: (B, S, D) hidden states; table: (V, D); labels: (B, S) int32;
+    ``divisor``: the logits' (``unembed``).
     """
     B, S, D = h.shape
     nc = min(n_chunks, S)
@@ -387,7 +404,7 @@ def softmax_xent_chunked(h: torch.Tensor, table: torch.Tensor,
     sc = S // nc
 
     def body(hx, table, lx):
-        logits = unembed(hx, table)                       # (B, sc, V) fp32
+        logits = unembed(hx, table, divisor)              # (B, sc, V) fp32
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, lx.to(torch.int64)[..., None])[..., 0]
         return torch.sum(logz - gold)

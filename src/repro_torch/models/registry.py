@@ -50,7 +50,9 @@ def _xent_loss(cfg, forward, table_fn):
     def loss(params, batch, rng: Optional[tstream.ThunderStream] = None):
         h, aux = forward(params, batch, rng, return_hidden=True)
         nll = L.softmax_xent_chunked(h, table_fn(params), batch["labels"],
-                                     n_chunks=cfg.loss_chunks)
+                                     n_chunks=cfg.loss_chunks,
+                                     divisor=getattr(cfg, "logits_scaling",
+                                                     None))
         total = nll + AUX_WEIGHT * aux
         return total, {"nll": nll, "aux": aux}
     return loss

@@ -9,6 +9,13 @@ update their ``(L, B, T, K, hd)`` KV caches in place.
 
 All randomness (init, dropout, router jitter) comes from named ThundeRiNG
 streams.
+
+A ``GraniteConfig`` adds GraniteMoe's scalars to the decoder-only LM in
+forward, prefill and decode alike: the embedding times
+``embedding_multiplier``, the attention logits times
+``attention_multiplier``, each residual branch times
+``residual_multiplier`` and the logits over ``logits_scaling``.  Where a
+config has none, no multiply is made.
 """
 from __future__ import annotations
 
@@ -23,6 +30,19 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import sharding as shd
 from repro_torch.models.common import ArchConfig, ParamFactory, unflatten
+
+
+def _scalar(cfg: ArchConfig, name: str) -> Optional[float]:
+    """One of ``GraniteConfig``'s scalars, None where the config has it
+    not."""
+    return getattr(cfg, name, None)
+
+
+def _branch(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """A residual branch, times ``residual_multiplier`` if the config has
+    one."""
+    m = _scalar(cfg, "residual_multiplier")
+    return x if m is None else x * m
 
 
 def _kr(cfg: ArchConfig) -> Tuple[int, int]:
@@ -149,11 +169,13 @@ def _self_attention(cfg, lp, h, positions, *, causal, kv_cache=None,
     if cfg.rope_theta > 0 and cfg.family != "encdec":
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
+    scale = _scalar(cfg, "attention_multiplier")
+    kw = {} if scale is None else {"scale": scale}
     if kv_cache is not None:
         k_cache, v_cache = write_kv(kv_cache, k, v, pos)
-        o = L.decode_attention(q, k_cache, v_cache, pos)
+        o = L.decode_attention(q, k_cache, v_cache, pos, **kw)
         return L.attn_out(o, lp[f"{prefix}wo"]), (k_cache, v_cache)
-    o = L.attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk)
+    o = L.attention(q, k, v, causal=causal, q_chunk=cfg.q_chunk, **kw)
     return L.attn_out(o, lp[f"{prefix}wo"]), (k, v)
 
 
@@ -171,10 +193,10 @@ def write_kv(kv_cache, k, v, pos: int):
     return k_cache, v_cache
 
 
-def _mlp_block(cfg, lp, h, rng, moe: bool):
+def _mlp_block(cfg, lp, h, rng, moe: bool, layer=None):
     if moe:
         return moe_mod.moe_mlp(cfg, h, lp["router"], lp["moe_wg"],
-                               lp["moe_wi"], lp["moe_wo"], rng)
+                               lp["moe_wi"], lp["moe_wo"], rng, layer=layer)
     gated = cfg.act in ("silu", "geglu")
     out = L.mlp(h, lp["wi"], lp["wo_mlp"], cfg.act,
                 lp.get("wg") if gated else None)
@@ -182,9 +204,11 @@ def _mlp_block(cfg, lp, h, rng, moe: bool):
 
 
 def _decoder_layer(cfg: ArchConfig, h, lp, positions, rng, *,
-                   kv_cache=None, pos=None, enc_out=None, causal=True):
+                   kv_cache=None, pos=None, enc_out=None, causal=True,
+                   layer=None):
     """One decoder layer. Returns (h, new_kv, aux_loss).  ``enc_out``:
-    the layer's cross-attention (k, v) (encdec decoder layers)."""
+    the layer's cross-attention (k, v) (encdec decoder layers); ``layer``
+    keys the MoE block's spans."""
     moe = cfg.family == "moe"
     if cfg.family == "encdec":   # LayerNorm with weight 1 + w, no bias
         nrm = lambda x, base: L.layer_norm(x, 1.0 + lp[base],
@@ -202,7 +226,7 @@ def _decoder_layer(cfg: ArchConfig, h, lp, positions, rng, *,
     attn, new_kv = _self_attention(cfg, lp, a_in, positions, causal=causal,
                                    kv_cache=kv_cache, pos=pos)
     attn = L.dropout(attn, rng, cfg.dropout_rate)
-    h = h + attn
+    h = h + _branch(cfg, attn)
     if enc_out is not None:
         x_in = nrm(h, "xattn_norm")
         xq = torch.einsum("bsd,dkrh->bskrh", x_in, lp["xwq"].to(x_in.dtype))
@@ -217,9 +241,9 @@ def _decoder_layer(cfg: ArchConfig, h, lp, positions, rng, *,
     if seq_gather:
         m_in = shd.gather_seq_hint(m_in)
     mlp_rng = tstream.derive(rng, 0x4D4C50) if rng is not None else None
-    out, aux = _mlp_block(cfg, lp, m_in, mlp_rng, moe)
+    out, aux = _mlp_block(cfg, lp, m_in, mlp_rng, moe, layer)
     out = L.dropout(out, rng, cfg.dropout_rate)
-    return shd.activation_hint(h + out), new_kv, aux
+    return shd.activation_hint(h + _branch(cfg, out)), new_kv, aux
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +256,7 @@ def _layer(params_layers: Dict[str, torch.Tensor], li: int):
 
 
 def _embed_inputs(cfg, params, tokens, patches):
-    h = L.embed(tokens, params["embed"])
+    h = L.embed(tokens, params["embed"], _scalar(cfg, "embedding_multiplier"))
     if cfg.family == "vlm" and patches is not None:
         # pad+add, as the reference (which keeps the sequence sharding).
         # A negative pad would crop the patches; the reference's pad
@@ -261,8 +285,8 @@ def lm_forward(cfg: ArchConfig, params, tokens, *, patches=None,
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device).expand(B, S)
 
-    def body(h, lp, lrng):
-        h, _, aux = _decoder_layer(cfg, h, lp, positions, lrng)
+    def body(h, lp, lrng, li):
+        h, _, aux = _decoder_layer(cfg, h, lp, positions, lrng, layer=li)
         return h, aux
 
     auxes = []
@@ -270,15 +294,16 @@ def lm_forward(cfg: ArchConfig, params, tokens, *, patches=None,
         lrng = tstream.derive(rng, li) if rng is not None else None
         lp = _layer(params["layers"], li)
         if cfg.remat == "full":
-            h, aux = L.remat(body, h, lp, lrng)
+            h, aux = L.remat(body, h, lp, lrng, li)
         else:
-            h, aux = body(h, lp, lrng)
+            h, aux = body(h, lp, lrng, li)
         auxes.append(aux)
     h = _norm(cfg, h, params["final_norm"])
     aux = torch.mean(torch.stack(auxes))
     if return_hidden:
         return h, aux
-    return L.unembed(h, _lm_table(cfg, params)), aux
+    return L.unembed(h, _lm_table(cfg, params),
+                     _scalar(cfg, "logits_scaling")), aux
 
 
 def lm_prefill(cfg: ArchConfig, params, tokens, *, patches=None):
@@ -293,11 +318,12 @@ def lm_prefill(cfg: ArchConfig, params, tokens, *, patches=None):
     ks, vs = [], []
     for li in range(cfg.n_layers):
         h, (k, v), _ = _decoder_layer(cfg, h, _layer(params["layers"], li),
-                                      positions, None)
+                                      positions, None, layer=li)
         ks.append(k)
         vs.append(v)
     h = _norm(cfg, h, params["final_norm"])
-    logits = L.unembed(h[:, -1:], _lm_table(cfg, params))[:, 0]
+    logits = L.unembed(h[:, -1:], _lm_table(cfg, params),
+                       _scalar(cfg, "logits_scaling"))[:, 0]
     return logits, (torch.stack(ks), torch.stack(vs))
 
 
@@ -307,16 +333,18 @@ def lm_decode(cfg: ArchConfig, params, cache, token, pos):
     (B, V), cache); the cache's tensors are updated in place at ``pos``
     (the reference donates its carry to the same end)."""
     pos = int(pos)
-    h = L.embed(token, params["embed"])
+    h = L.embed(token, params["embed"], _scalar(cfg, "embedding_multiplier"))
     B = token.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=h.device)
     kc_all, vc_all = cache
     for li in range(cfg.n_layers):
         h, _, _ = _decoder_layer(cfg, h, _layer(params["layers"], li),
                                  positions, None,
-                                 kv_cache=(kc_all[li], vc_all[li]), pos=pos)
+                                 kv_cache=(kc_all[li], vc_all[li]), pos=pos,
+                                 layer=li)
     h = _norm(cfg, h, params["final_norm"])
-    return L.unembed(h, _lm_table(cfg, params))[:, 0], (kc_all, vc_all)
+    return L.unembed(h, _lm_table(cfg, params),
+                     _scalar(cfg, "logits_scaling"))[:, 0], (kc_all, vc_all)
 
 
 # ---------------------------------------------------------------------------

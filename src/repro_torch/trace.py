@@ -114,7 +114,11 @@ class Span:
         self.end_ns = time.perf_counter_ns()
         if self._events is not None:
             self._events[1].record(self._events[2])
-        _stack().pop()
+        stack = _stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        elif self in stack:         # a span closed out of nesting order
+            stack.remove(self)
         _records.append(self)       # atomic under the interpreter lock
         return False
 

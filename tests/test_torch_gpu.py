@@ -877,3 +877,81 @@ def test_gumbel_argmax_kernel_at_the_families_vocabularies(cuda, V, deco):
               else torch.full((64,), float("-inf"), device=cuda))
         for ctr in (0, 2 ** 32 + 12345, 2 ** 64 - V):
             _ga_check(logits, h, x0, ctr, th, inv_temp, deco)
+
+
+# granite-moe-3b-a800m's widths, dropless (capacity_factor <= 0)
+GRANITE_MOE = dict(name="granite-moe-card", family="moe", n_layers=1,
+                   d_model=1536, n_heads=24, n_kv_heads=8, d_ff=512,
+                   vocab=49155, n_experts=40, top_k=8, capacity_factor=0.0,
+                   moe_group=512)
+
+
+def _dropless_case(cuda, N=2048, seed=0):
+    from repro_torch.models.common import ArchConfig
+    cfg = ArchConfig(**GRANITE_MOE)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.d_ff
+    h = torch.randn(1, N, D, generator=g, device=cuda).bfloat16()
+    ws = [torch.randn(D, E, generator=g, device=cuda) * 0.02,
+          torch.randn(E, D, F, generator=g, device=cuda) * 0.02,
+          torch.randn(E, D, F, generator=g, device=cuda) * 0.02,
+          torch.randn(E, F, D, generator=g, device=cuda) * 0.02]
+    return cfg, h, ws
+
+
+def _dropless_run(cfg, h, ws, rng):
+    from repro_torch.models import moe
+    leaves = [x.clone().requires_grad_() for x in [h] + ws]
+    y, aux = moe.moe_mlp(cfg, leaves[0], *leaves[1:], rng)
+    r = torch.linspace(-1, 1, y.numel(), device=y.device).reshape(y.shape)
+    grads = torch.autograd.grad((y.float() * r).sum() + aux, leaves)
+    return [y, aux] + list(grads)
+
+
+def test_grouped_products_on_card_match_the_expert_loop(cuda):
+    """``moe.grouped_mm`` (``torch._grouped_mm``) at granite's widths,
+    forward and backward, against the per-expert loop of the CPU path on
+    the same rows: uneven loads, one empty expert, padded groups."""
+    from repro_torch.models import moe
+    E, D, F, N, k = 40, 1536, 512, 4096, 8
+    g = torch.Generator(device=cuda).manual_seed(1)
+    scores = torch.rand(N, E, generator=g, device=cuda)
+    scores[:, 0] = -1.0                               # expert 0 empty
+    scores[:, 1:4] += 0.3                             # uneven loads
+    top = torch.sort(scores, dim=-1, descending=True, stable=True)[1][:, :k]
+    row, choice, ends = moe.dropless_plan(top, E)
+    M = choice.numel()
+    x = torch.randn(M, D, generator=g, device=cuda).bfloat16()
+    x[choice == N * k] = 0
+    w = (torch.randn(E, D, F, generator=g, device=cuda) * 0.02).bfloat16()
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    got = moe.grouped_mm(xa, wa, ends)
+    gy = torch.randn_like(got)
+    gx, gw = torch.autograd.grad(got, [xa, wa], gy)
+    xb, wb = x.cpu().requires_grad_(), w.cpu().requires_grad_()
+    want = moe.grouped_mm(xb, wb, ends.cpu())
+    wx, ww = torch.autograd.grad(want, [xb, wb], gy.cpu())
+    rel = lambda a, b: float((a.float().cpu() - b.float()).norm()
+                             / b.float().norm())
+    assert rel(got, want) < 1e-2
+    assert rel(gx, wx) < 1e-2 and rel(gw, ww) < 1e-2
+    assert float(gw[0].abs().max()) == 0.0
+
+
+def test_dropless_layer_on_card_never_waits_and_reruns_bit_identically(cuda):
+    """One dropless MoE block at granite's widths, forward and backward
+    with the router's jitter, with torch's sync debug mode raising on any
+    wait for the card; twice, with equal digests."""
+    from repro_torch.core import stream as tstream
+    cfg, h, ws = _dropless_case(cuda)
+    rng = tstream.new_stream(5, 0, device=cuda)
+    _dropless_run(cfg, h, ws, rng)                    # warm the allocator
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = _dropless_run(cfg, h, ws, rng)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    b = _dropless_run(cfg, h, ws, rng)
+    assert [digests.digest(t.detach().reshape(-1)) for t in a] == \
+        [digests.digest(t.detach().reshape(-1)) for t in b]
